@@ -1,0 +1,101 @@
+"""The port's CUDA SHA-1 kernel on the card (marker ``cuda``).
+
+Run on a host with an NVIDIA GPU, ``nvcc`` and PyTorch built for CUDA:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The first test builds csrc/sha1.cu into build/downloader_tpu_torch/.
+Without a card every test here skips. The kernel is held bit-exact
+against its plain PyTorch version on the same tensors on the card and
+against hashlib. This file imports nothing of JAX, so it runs where JAX
+is not installed.
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from downloader_tpu_torch.parallel import mesh, pack, sha1, sha1_cuda
+from downloader_tpu_torch.parallel.engine import DigestEngine
+
+pytestmark = pytest.mark.cuda
+
+EDGE_SIZES = (0, 1, 3, 55, 56, 57, 63, 64, 65, 119, 120, 128, 1000, 16384)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU tests cover the plain version")
+    return torch.device("cuda", 0)
+
+
+def _pieces(sizes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.bytes(int(n)) for n in sizes]
+
+
+def _on(card, pieces):
+    blocks, nblocks = pack.pack_pieces(pieces)
+    return (
+        torch.from_numpy(blocks.view(np.int32)).to(card),
+        torch.from_numpy(nblocks).to(card),
+    )
+
+
+@pytest.mark.parametrize(
+    "sizes",
+    [EDGE_SIZES, [4096] * 1029 + [1000, 0]],
+    ids=["edge_sizes", "ragged_1031"],
+)
+def test_kernel_matches_plain_and_hashlib(card, sizes):
+    pieces = _pieces(sizes, seed=len(sizes))
+    blocks, nblocks = _on(card, pieces)
+    nblocks[len(pieces) // 2] = 0  # a padding lane keeps H0
+    before = sha1_cuda.launches
+    kernel = sha1_cuda.sha1_batch_cuda(blocks, nblocks)
+    assert sha1_cuda.launches == before + 1
+    plain = sha1.sha1_states(blocks, nblocks)
+    torch.cuda.synchronize()
+    assert kernel.device == card and torch.equal(kernel, plain)
+    digests = pack.digests_to_bytes(kernel.cpu().numpy(), len(pieces))
+    for lane, piece in enumerate(pieces):
+        if lane == len(pieces) // 2:
+            assert kernel[:, lane].cpu().numpy().view(np.uint32).tolist() == list(pack.H0)
+        else:
+            assert digests[lane] == hashlib.sha1(piece).digest()
+
+
+def test_wrapper_raises_on_bad_cuda_arguments(card):
+    blocks, nblocks = _on(card, _pieces([10, 200]))
+    with pytest.raises(ValueError, match="contiguous"):
+        sha1_cuda.sha1_states(blocks.transpose(0, 2).contiguous().transpose(0, 2), nblocks)
+    with pytest.raises(ValueError):
+        sha1_cuda.sha1_states(blocks, nblocks.cpu())
+    with pytest.raises(TypeError):
+        sha1_cuda.sha1_states(blocks.to(torch.int64), nblocks)
+
+
+def test_engine_on_the_card(card):
+    engine = DigestEngine(backend="cuda", device=card)
+    pieces = _pieces(EDGE_SIZES, seed=3)
+    want = [hashlib.sha1(p).digest() for p in pieces]
+    before = sha1_cuda.launches
+    assert engine.sha1_many(pieces) == want
+    expected = list(want)
+    expected[7] = bytes(20)
+    assert engine.verify_pieces(pieces, expected) == [i != 7 for i in range(14)]
+    assert sha1_cuda.launches == before + 2
+    assert engine.backend_name == f"cuda-sha1[{card}]"
+
+
+def test_split_across_the_visible_cards(card):
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    pieces = _pieces([300] * 20, seed=4)
+    raw, counts = pack.pack_bytes(pieces)
+    states = mesh.digest_split(torch.from_numpy(raw), torch.from_numpy(counts), devices)
+    assert pack.digests_to_bytes(states.numpy(), 20) == [
+        hashlib.sha1(p).digest() for p in pieces
+    ]
