@@ -18,6 +18,7 @@ script exits non-zero without it. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -68,6 +69,10 @@ ALU_OPS = {
     "VIMNMX", "SHL", "SHR", "IABS", "BMSK", "SGXT", "FLO", "POPC", "BREV",
 }
 FMA_OPS = {"IMAD", "IMUL", "VIADD"}
+# the kernel the main path launches (rows on 16 bytes: P % 4 == 0) and
+# the chain-floor probe, by their names in the SASS
+MAIN_FUNCTION = r"sha1_kernelILi4E"
+PROBE_FUNCTION = r"chain_floor_kernel"
 KERNEL = {
     "name": "sha1_batch",
     "route": "cuda",
@@ -108,45 +113,183 @@ def host_ms(fn, reps: int = REPS) -> tuple[float, list[float]]:
     return statistics.median(times), times
 
 
-def block_cost(library: str) -> dict:
-    """The instructions the built kernel issues per 64-byte block, from
-    its SASS: the body of the block loop (the backward branch whose body
-    holds the most global loads, 16 a block), counted by pipe. A block
-    costs each SM the clocks of its busiest pipe or of issue."""
+def disassemble(library: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    sass = subprocess.run(
+    return subprocess.run(
         [os.path.join(cuda_home, "bin", "cuobjdump"), "-sass", library],
         capture_output=True,
         text=True,
         timeout=120,
         check=True,
     ).stdout
-    code = [
-        (int(addr, 16), re.sub(r"^@!?U?P\w+\s+", "", text.strip()))
-        for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*?)\s*;", sass)
-    ]
-    loops = []
+
+
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """``cuobjdump -sass`` text → {function name: [(address, instruction)]},
+    each instruction without its guard predicate and its ``;``."""
+    functions = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        functions[name.strip()] = [
+            (int(addr, 16), re.sub(r"^@!?U?P\w+\s+", "", text.strip()))
+            for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*?)\s*;", body)
+        ]
+    return functions
+
+
+def _function(sass: str, function: str) -> list[tuple[int, str]]:
+    """The code of the one function whose name matches ``function``."""
+    functions = sass_functions(sass)
+    names = [name for name in functions if re.search(function, name)]
+    assert len(names) == 1, f"{function!r} names {names}"
+    return functions[names[0]]
+
+
+def _opcode(text: str) -> str:
+    """The opcode without its modifiers; ``LDS RZ, [RZ]``, a load ptxas
+    places before asynchronous copies that reads no message word, is
+    ``LDS.RZ``, apart from the shared loads of message words."""
+    op = text.split()[0].split(".")[0]
+    return f"{op}.RZ" if op == "LDS" and re.match(r"LDS\S*\s+RZ\b", text) else op
+
+
+def _loops(code: list[tuple[int, str]]) -> list[tuple[int, int]]:
+    """(first, last) address of every loop: a backward branch and its
+    target."""
+    loops = set()
     for addr, text in code:
         branch = re.match(r"BRA\S*\s+(0x[0-9a-f]+)", text)
         if branch and int(branch.group(1), 16) < addr:
-            start = int(branch.group(1), 16)
-            body = [text for at, text in code if start <= at <= addr]
-            loops.append(Counter(text.split()[0].split(".")[0] for text in body))
-    assert loops, "no loop found in the kernel's SASS"
-    ops = max(loops, key=lambda loop: loop["LDG"])
-    per_trip = ops["LDG"] // 16
-    assert per_trip >= 1 and ops["LDG"] % 16 == 0, f"loop loads: {ops['LDG']}"
-    issued = sum(ops.values()) / per_trip
-    alu = sum(n for op, n in ops.items() if op in ALU_OPS) / per_trip
-    fma = sum(n for op, n in ops.items() if op in FMA_OPS) / per_trip
+            loops.add((int(branch.group(1), 16), addr))
+    return sorted(loops)
+
+
+def _body(code, loop) -> list[str]:
+    return [text for addr, text in code if loop[0] <= addr <= loop[1]]
+
+
+_NO_DEST = {"ST", "STS", "STG", "STL", "LDGSTS", "BRA", "EXIT", "BAR", "WARPSYNC",
+            "DEPBAR", "LDGDEPBAR", "NOP", "BSSY", "BSYNC", "RET", "CALL"}
+
+
+def chain_depth(body: list[str]) -> int:
+    """The longest chain of dependent instructions in straight-line code:
+    each instruction comes one step after the last writer of any register
+    it reads. Writes go to the first operand."""
+    ready: dict[str, int] = {}
+    longest = 0
+    for text in body:
+        op, _, rest = text.partition(" ")
+        operands = [part.strip() for part in rest.split(",")]
+        if not operands[0]:
+            continue
+        dest = None
+        if _opcode(op) not in _NO_DEST and re.fullmatch(r"U?[RP]\d+(\.\w+)?", operands[0]):
+            dest, operands = operands[0].split(".")[0], operands[1:]
+        sources = re.findall(r"\b(U?[RP]\d+)\b", ",".join(operands))
+        depth = 1 + max((ready.get(reg, 0) for reg in sources), default=0)
+        longest = max(longest, depth)
+        if dest:
+            ready[dest] = depth
+    return longest
+
+
+def _per_block(ops: Counter, blocks: float) -> dict:
+    """A count by pipe, per block. A block costs each SM the clocks of its
+    busiest pipe or of issue (``sm_clocks``); one warp, on one of the
+    SM's four sub-partitions, 16 ALU and 16 FMA lanes and one issue a
+    clock (``warp_clocks``)."""
+    issued = sum(ops.values()) / blocks
+    alu = sum(n for op, n in ops.items() if op in ALU_OPS) / blocks
+    fma = sum(n for op, n in ops.items() if op in FMA_OPS) / blocks
     return {
         "issued": issued,
         "alu": alu,
         "fma": fma,
         "sm_clocks": max(alu / ALU_LANES, fma / FMA_LANES, issued / ISSUE_LANES),
-        "blocks_per_trip": per_trip,
-        "by_opcode": {op: n / per_trip for op, n in ops.most_common()},
+        "warp_clocks": max(alu * 32 / (ALU_LANES // 4), fma * 32 / (FMA_LANES // 4), issued),
+        "by_opcode": {op: n / blocks for op, n in ops.most_common()},
     }
+
+
+def sass_block_cost(sass: str, function: str, stage_blocks: int) -> dict:
+    """The instructions the kernel ``function`` (a regex on its SASS name)
+    issues per 64-byte block, by pipe, for each of its two warps and in
+    all. The schedule warp's block loop is the innermost loop that stores
+    to shared memory (W + K) and reads 16 message words a block from it;
+    its stage loop, around it, issues the copies of ``stage_blocks``
+    blocks a trip, and its own instructions count once per stage. The
+    round warp's loop reads W + K, 20 16-byte loads a block, and neither
+    stores nor copies; the longest dependent chain through its body is
+    the rounds' chain."""
+    code = _function(sass, function)
+    loops = _loops(code)
+
+    def count(loop) -> Counter:
+        return Counter(_opcode(text) for text in _body(code, loop))
+
+    def innermost(found: list, what: str) -> tuple[int, int]:
+        assert found, f"no {what} in the kernel's SASS"
+        return min(found, key=lambda loop: loop[1] - loop[0])
+
+    block = innermost([loop for loop in loops if count(loop)["STS"]], "schedule loop")
+    block_ops = count(block)
+    per_trip = block_ops["LDS"] // 16
+    assert per_trip >= 1 and block_ops["LDS"] % 16 == 0, f"loop LDS: {block_ops['LDS']}"
+    # with one block a stage the two loops are one
+    stage = innermost(
+        [loop for loop in loops if loop[0] <= block[0] and block[1] <= loop[1]
+         and count(loop)["LDGSTS"]],
+        "copy loop around the schedule loop",
+    )
+    stage_ops = count(stage) - block_ops
+    schedule_ops = Counter(
+        {op: block_ops[op] / per_trip + stage_ops[op] / stage_blocks
+         for op in block_ops | stage_ops}
+    )
+    rounds = innermost(
+        [loop for loop in loops if count(loop)["LDS"] and not count(loop)["STS"]
+         and not count(loop)["LDGSTS"]],
+        "round loop",
+    )
+    round_ops = count(rounds)
+    round_trip = round_ops["LDS"] // 20
+    assert round_trip >= 1 and round_ops["LDS"] % 20 == 0, f"round LDS: {round_ops['LDS']}"
+    round_ops = Counter({op: n / round_trip for op, n in round_ops.items()})
+    depth = chain_depth(_body(code, rounds)) / round_trip
+    total = _per_block(schedule_ops + round_ops, 1)
+    del total["warp_clocks"]  # the two warps issue on two sub-partitions
+    return {
+        **total,
+        "schedule_warp": _per_block(schedule_ops, 1),
+        "round_warp": _per_block(round_ops, 1),
+        "copies": schedule_ops["LDGSTS"],
+        "blocks_per_trip": {"schedule": per_trip, "rounds": round_trip},
+        "chain_depth": depth,
+        "chain_per_round": depth / 80,
+    }
+
+
+def sass_probe_cost(sass: str, function: str) -> dict:
+    """The chain-floor probe's loop, one block a trip: its instructions
+    by pipe and its longest dependent chain."""
+    code = _function(sass, function)
+    loop = max(_loops(code), key=lambda loop: len(_body(code, loop)))
+    body = _body(code, loop)
+    depth = chain_depth(body)
+    return {
+        **_per_block(Counter(_opcode(text) for text in body), 1),
+        "chain_depth": depth,
+        "chain_per_round": depth / 80,
+    }
+
+
+def source_define(name: str, source=sha1_cuda.SOURCE) -> int:
+    """The default of ``SHA1_<name>`` in a kernel source: STAGES,
+    STAGE_BLOCKS (blocks a ring stage), SCHEDULE_SLOTS."""
+    found = re.search(rf"#define SHA1_{name} (\d+)", source.read_text())
+    assert found, f"SHA1_{name} not found in {source}"
+    return int(found.group(1))
 
 
 def bounds(nblocks: torch.Tensor, cost: dict) -> dict:
@@ -167,6 +310,24 @@ def bounds(nblocks: torch.Tensor, cost: dict) -> dict:
     }
 
 
+def chain_floor_ms(num_blocks: int) -> tuple[float, list[float]]:
+    """Device time of the chain-floor probe (sha1_chain_floor in the
+    kernel's source): the rounds' critical path alone for ``num_blocks``
+    blocks on one lane."""
+    lib = sha1_cuda.load()
+    lib.sha1_chain_floor.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.sha1_chain_floor.restype = ctypes.c_int
+    out = torch.empty(5, dtype=torch.int32, device="cuda")
+
+    def run() -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.sha1_chain_floor(out.data_ptr(), num_blocks, stream)
+        if status != 0:
+            raise RuntimeError(f"sha1_chain_floor failed with CUDA error {status}")
+
+    return cuda_ms(run)
+
+
 def as_uint32(states: torch.Tensor) -> np.ndarray:
     return states.cpu().numpy().view(np.uint32).astype(np.int64)
 
@@ -177,8 +338,12 @@ def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
     ragged = [rng.bytes(4096) for _ in range(1029)] + [rng.bytes(1000), b""]
     worst = 0
     shapes = {}
+    # 1024 lanes take the 16-byte copies of the main path, 1031 and the
+    # edge sizes the 4-byte ones
+    ragged_1024 = [rng.bytes(int(n)) for n in rng.integers(0, 8192, 1023)] + [b""]
     for label, pieces in (
         ("edge_sizes", [rng.bytes(n) for n in EDGE_SIZES]),
+        ("ragged_1024", ragged_1024),
         ("ragged_1031", ragged),
     ):
         words, counts = pack_pieces(pieces)
@@ -361,11 +526,16 @@ def phase_times(payload: bytes, main: dict, cost: dict) -> dict:
         part = blocks if count == len(pieces) else to_gpu_layout(raw[:count])
         part_counts = nblocks[:count].contiguous()
         ms, runs = cuda_ms(lambda: sha1_cuda.sha1_batch_cuda(part, part_counts))
+        floor_ms, floor_runs = chain_floor_ms(part.shape[0])
         shapes[f"P{count}_B{part.shape[0]}"] = {
             "P": count,
             "B": part.shape[0],
             "kernel_ms": ms,
             "kernel_runs_ms": runs,
+            "kernel_ns_per_block": ms * 1e6 / part.shape[0],
+            "chain_floor_ms": floor_ms,
+            "chain_floor_runs_ms": floor_runs,
+            "chain_floor_ns_per_block": floor_ms * 1e6 / part.shape[0],
             "GBps": count * PIECE_LENGTH / ms / 1e6,
             **bounds(part_counts, cost),
         }
@@ -530,7 +700,8 @@ def main() -> int:
     built = sha1_cuda.build()
     sha1_cuda.load()
     build_s = time.perf_counter() - start
-    cost = block_cost(str(built))
+    sass = disassemble(str(built))
+    cost = sass_block_cost(sass, MAIN_FUNCTION, source_define("STAGE_BLOCKS"))
     emit(
         "build",
         seconds=build_s,
@@ -538,7 +709,11 @@ def main() -> int:
         ptxas=[line for line in sha1_cuda.build_log.splitlines() if line.strip()],
         torch=torch.__version__,
         cuda=torch.version.cuda,
+        nvcc=subprocess.run(
+            [sha1_cuda._nvcc(), "--version"], capture_output=True, text=True, check=True
+        ).stdout.strip().splitlines()[-1],
         instructions_per_block=cost,
+        chain_floor_probe_per_block=sass_probe_cost(sass, PROBE_FUNCTION),
     )
 
     rng = np.random.default_rng(args.seed)

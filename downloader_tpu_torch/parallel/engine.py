@@ -48,7 +48,7 @@ log = get_logger("parallel")
 
 _DEFAULT_MIN_BATCH = 8
 _CALIBRATE_BYTES = 4 * 1024 * 1024
-# blocks in the one-lane launch that prices the kernel: about 1 ms of
+# blocks in the one-lane launch that prices the kernel: about 0.5 ms of
 # the CUDA kernel; the plain version on the host is far slower per block
 _CALIBRATE_BLOCKS = {"cuda": 1024, "cpu": 2}
 BACKENDS = ("auto", "cuda", "hashlib")

@@ -12,6 +12,7 @@ is not installed.
 """
 
 import hashlib
+import re
 
 import numpy as np
 import pytest
@@ -35,6 +36,23 @@ def card():
 def _pieces(sizes, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.bytes(int(n)) for n in sizes]
+
+
+def _ring():
+    """(stages, blocks a stage) of the kernel's ring, from its source."""
+    text = sha1_cuda.SOURCE.read_text()
+    return tuple(
+        int(re.search(rf"#define SHA1_{name} (\d+)", text).group(1))
+        for name in ("STAGES", "STAGE_BLOCKS")
+    )
+
+
+def _sized(rng, ends):
+    """One random piece for each block count in ``ends``."""
+    return [
+        rng.bytes(int(rng.integers(max(0, 64 * (n - 1) - 8), 64 * n - 8)))
+        for n in ends
+    ]
 
 
 def _on(card, pieces):
@@ -99,3 +117,62 @@ def test_split_across_the_visible_cards(card):
     assert pack.digests_to_bytes(states.numpy(), 20) == [
         hashlib.sha1(p).digest() for p in pieces
     ]
+
+
+@pytest.mark.parametrize("count", [1, 31, 33, 64, 1024, 1031])
+@pytest.mark.parametrize("depth", ["below", "at", "above"])
+def test_ragged_lanes_around_the_ring(card, count, depth):
+    # B below, at and above the ring's blocks; the lanes end at every
+    # offset within a stage and across stage boundaries; P % 4 == 0 takes
+    # the 16-byte copies, the other counts the 4-byte ones
+    stages, stage_blocks = _ring()
+    ring = stages * stage_blocks
+    num_blocks = {"below": ring - 1, "at": ring, "above": ring + stage_blocks + 1}[depth]
+    ends = [1 + (7 * lane) % num_blocks for lane in range(count)]
+    ends[0] = ends[-1] = num_blocks
+    rng = np.random.default_rng(count * 3 + num_blocks)
+    pieces = _sized(rng, ends)
+    blocks, nblocks = _on(card, pieces)
+    assert blocks.shape == (num_blocks, 16, count)
+    zero = count // 2 if count > 2 else None
+    if zero is not None:
+        nblocks[zero] = 0  # a padding lane keeps H0
+    if count > 1:
+        nblocks[-1] = num_blocks + 9  # counts above B are clamped to B
+    kernel = sha1_cuda.sha1_batch_cuda(blocks, nblocks)
+    plain = sha1.sha1_states(blocks, nblocks)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel, plain)
+    digests = pack.digests_to_bytes(kernel.cpu().numpy(), count)
+    for lane, piece in enumerate(pieces):
+        if lane == zero:
+            assert kernel[:, lane].cpu().numpy().view(np.uint32).tolist() == list(pack.H0)
+        else:
+            assert digests[lane] == hashlib.sha1(piece).digest(), lane
+
+
+def test_rows_off_16_bytes_take_the_4_byte_copies(card):
+    # P % 4 == 0 but the tensor starts 4 bytes past a 16-byte boundary
+    pieces = _sized(np.random.default_rng(5), [1 + lane % 20 for lane in range(64)])
+    words, counts = pack.pack_pieces(pieces)
+    flat = torch.empty(words.size + 1, dtype=torch.int32, device=card)
+    blocks = flat[1:].view(words.shape)
+    blocks.copy_(torch.from_numpy(words.view(np.int32)))
+    assert blocks.data_ptr() % 16 == 4 and blocks.is_contiguous()
+    kernel = sha1_cuda.sha1_batch_cuda(blocks, torch.from_numpy(counts).to(card))
+    assert pack.digests_to_bytes(kernel.cpu().numpy(), 64) == [
+        hashlib.sha1(p).digest() for p in pieces
+    ]
+
+
+def test_calibration_chain_of_one_lane(card):
+    # the engine prices the kernel by one lane's chain of 1024 blocks
+    # (64 KiB, held in L2): the same launch on a real message
+    piece = np.random.default_rng(6).bytes(1024 * 64 - 9)
+    blocks, nblocks = _on(card, [piece])
+    assert blocks.shape == (1024, 16, 1)
+    kernel = sha1_cuda.sha1_batch_cuda(blocks, nblocks)
+    assert pack.digests_to_bytes(kernel.cpu().numpy(), 1) == [hashlib.sha1(piece).digest()]
+    engine = DigestEngine(backend="auto", device=card)
+    hashlib_bps, transfer_bps, sync_s, block_s = engine._calibrate()
+    assert hashlib_bps > 0 and transfer_bps > 0 and sync_s > 0 and block_s > 0

@@ -12,7 +12,9 @@ tests/test_torch_cuda.py holds the kernel itself on the card.
 
 import ast
 import hashlib
+import importlib.util
 import os
+import re
 import threading
 from pathlib import Path
 
@@ -514,6 +516,210 @@ class TestKernelWrapper:
         assert sha1_cuda._build_dir(tmp_path) == tmp_path / "build" / "downloader_tpu_torch"
 
 
+# The kernel the main path launches (16-byte copies), disassembled with
+# cuobjdump -sass from a build of csrc/sha1.cu for sm_90a on the card and
+# trimmed: each loop keeps its first and last instructions, its shared
+# loads and stores, copies and barriers, and the first rounds of the round
+# warp; addresses and branch targets are as built.
+SASS_EXCERPT = """\
+Function : _ZN39_GLOBAL__N__6ba34cf8_7_sha1_cu_c8eb647911sha1_kernelILi4EEEvPKjPKiPjii
+        /*0360*/  IMAD.IADD R16, R7, 0x1, R16 ;
+        /*0370*/  LOP3.LUT R0, R20.reuse, R22, R21, 0xb8, !PT ;
+        /*0380*/  IMAD.IADD R17, R20, 0x1, R17 ;
+        /*0390*/  SHF.L.W.U32.HI R14, R22, 0x1e, R22 ;
+        /*03a0*/  IMAD.IADD R25, R21, 0x1, R18 ;
+        /*03b0*/  LEA.HI R13, R23, R16, R23, 0x5 ;
+        /*03c0*/  IMAD.IADD R27, R14, 0x1, R19 ;
+        /*03d0*/  IMAD.IADD R12, R0, 0x1, R13 ;
+        /*03e0*/  LOP3.LUT R13, R21, R23, R14, 0xb8, !PT ;
+        /*03f0*/  LOP3.LUT R0, R6, 0x3, RZ, 0xc0, !PT ;
+        /*0400*/  LEA.HI R16, R12.reuse, R17, R12.reuse, 0x5 ;
+        /*0410*/  SHF.L.W.U32.HI R17, R23, 0x1e, R23 ;
+        /*0420*/  SHF.L.W.U32.HI R19, R12, 0x1e, R12 ;
+        /*0430*/  IMAD.IADD R16, R13, 0x1, R16 ;
+        /*0440*/  LOP3.LUT R15, R14, R12, R17, 0xb8, !PT ;
+        /*0450*/  IMAD R13, R0, 0x280, R5 ;
+        /*04c0*/  LDS.128 R12, [R24+0x8400] ;
+        /*05f0*/  LDS.128 R8, [R24+0x8600] ;
+        /*0740*/  LDS.128 R12, [R24+0x8800] ;
+        /*08a0*/  LDS.128 R8, [R24+0x8a00] ;
+        /*09e0*/  LDS.128 R12, [R24+0x8c00] ;
+        /*0b30*/  LDS.128 R8, [R24+0x8e00] ;
+        /*0c90*/  LDS.128 R12, [R24+0x9000] ;
+        /*0dd0*/  LDS.128 R8, [R24+0x9200] ;
+        /*0f20*/  LDS.128 R12, [R24+0x9400] ;
+        /*1080*/  LDS.128 R8, [R24+0x9600] ;
+        /*11c0*/  LDS.128 R12, [R24+0x9800] ;
+        /*1310*/  LDS.128 R8, [R24+0x9a00] ;
+        /*1470*/  LDS.128 R12, [R24+0x9c00] ;
+        /*15b0*/  LDS.128 R8, [R24+0x9e00] ;
+        /*1700*/  LDS.128 R12, [R24+0xa000] ;
+        /*1860*/  LDS.128 R8, [R24+0xa200] ;
+        /*19b0*/  LDS.128 R16, [R24+0xa400] ;
+        /*1ac0*/  LDS.128 R12, [R24+0xa600] ;
+        /*1c90*/  @!P0 BAR.SYNC.DEFER_BLOCKING R27, 0x40 ;
+        /*1e00*/  LDS.128 R16, [R28+0x8000] ;
+        /*1e30*/  LDS.128 R8, [R28+0x8200] ;
+        /*1e60*/  @!P1 BAR.ARV R6, 0x40 ;
+        /*1f20*/  @!P1 BRA 0x360 ;
+        /*3060*/  DEPBAR.LE SB0, 0x2 ;
+        /*30b0*/  @P0 BRA 0x3520 ;
+        /*3230*/  @!P4 LDGSTS.E.BYPASS.128 [R17], desc[UR6][R18.64], !P1 ;
+        /*3260*/  @!P4 LDGSTS.E.BYPASS.128 [R17+0x200], desc[UR6][R12.64], !P1 ;
+        /*3290*/  @!P4 LDGSTS.E.BYPASS.128 [R17+0x400], desc[UR6][R14.64], !P1 ;
+        /*32a0*/  @!P4 LDGSTS.E.BYPASS.128 [R17+0x600], desc[UR6][R10.64], !P1 ;
+        /*3320*/  @!P3 LDGSTS.E.BYPASS.128 [R17+0x800], desc[UR6][R10.64], !P1 ;
+        /*3340*/  @!P3 LDGSTS.E.BYPASS.128 [R17+0xa00], desc[UR6][R8.64], !P1 ;
+        /*3360*/  @!P3 LDGSTS.E.BYPASS.128 [R17+0xc00], desc[UR6][R20.64], !P1 ;
+        /*3370*/  @!P3 LDGSTS.E.BYPASS.128 [R17+0xe00], desc[UR6][R22.64], !P1 ;
+        /*3410*/  @!P2 LDGSTS.E.BYPASS.128 [R17+0x1000], desc[UR6][R20.64], !P1 ;
+        /*3440*/  @!P2 LDGSTS.E.BYPASS.128 [R17+0x1200], desc[UR6][R18.64], !P1 ;
+        /*3460*/  @!P2 LDGSTS.E.BYPASS.128 [R17+0x1400], desc[UR6][R14.64], !P1 ;
+        /*3480*/  @!P2 LDGSTS.E.BYPASS.128 [R17+0x1600], desc[UR6][R12.64], !P1 ;
+        /*34e0*/  @!P0 LDGSTS.E.BYPASS.128 [R17+0x1800], desc[UR6][R14.64], !P1 ;
+        /*34f0*/  @!P0 LDGSTS.E.BYPASS.128 [R17+0x1a00], desc[UR6][R10.64], !P1 ;
+        /*3500*/  @!P0 LDGSTS.E.BYPASS.128 [R17+0x1c00], desc[UR6][R8.64], !P1 ;
+        /*3510*/  @!P0 LDGSTS.E.BYPASS.128 [R17+0x1e00], desc[UR6][R20.64], !P1 ;
+        /*35b0*/  ISETP.GE.AND P0, PT, R28, R3, PT ;
+        /*35c0*/  @P0 BRA 0x49c0 ;
+        /*35d0*/  ISETP.GE.AND P0, PT, R28.reuse, 0x4, PT ;
+        /*35e0*/  VIADD R28, R28, 0x1 ;
+        /*35f0*/  @P0 VIADD R8, R26.reuse, 0x5 ;
+        /*3600*/  @P0 WARPSYNC.ALL ;
+        /*3610*/  @P0 NOP ;
+        /*3620*/  @P0 BAR.SYNC.DEFER_BLOCKING R8, 0x40 ;
+        /*3630*/  VIADD R26, R26, 0x1 ;
+        /*3670*/  LDS R23, [R27] ;
+        /*3680*/  LDS R22, [R27+0x80] ;
+        /*3690*/  LDS R21, [R27+0x100] ;
+        /*36a0*/  LDS R20, [R27+0x180] ;
+        /*36b0*/  LDS R39, [R27+-0x300] ;
+        /*36c0*/  LDS R18, [R27+0x280] ;
+        /*36d0*/  LDS R40, [R27+-0x400] ;
+        /*36e0*/  LDS R37, [R27+-0x280] ;
+        /*36f0*/  LDS R17, [R27+0x300] ;
+        /*3700*/  LDS R38, [R27+-0x380] ;
+        /*3710*/  LDS R36, [R27+-0x200] ;
+        /*3730*/  LDS R16, [R27+0x380] ;
+        /*3750*/  LDS R35, [R27+-0x180] ;
+        /*3770*/  LDS R34, [R27+-0x100] ;
+        /*3790*/  LDS R19, [R27+0x200] ;
+        /*37b0*/  LDS R33, [R27+-0x80] ;
+        /*37d0*/  STS.128 [R25+-0x2200], R12 ;
+        /*3840*/  STS.128 [R25+-0x2600], R8 ;
+        /*3970*/  STS.128 [R25+-0x2400], R8 ;
+        /*3aa0*/  STS.128 [R25+-0x2000], R8 ;
+        /*3bd0*/  STS.128 [R25+-0x1e00], R8 ;
+        /*3d00*/  STS.128 [R25+-0x1c00], R8 ;
+        /*3e30*/  STS.128 [R25+-0x1a00], R8 ;
+        /*3f60*/  STS.128 [R25+-0x1800], R8 ;
+        /*4090*/  STS.128 [R25+-0x1600], R8 ;
+        /*41c0*/  STS.128 [R25+-0x1400], R8 ;
+        /*42d0*/  STS.128 [R25+-0x1200], R8 ;
+        /*43f0*/  STS.128 [R25+-0x1000], R8 ;
+        /*4470*/  STS.128 [R25+-0xe00], R8 ;
+        /*44c0*/  STS.128 [R25+-0xc00], R8 ;
+        /*4510*/  STS.128 [R25+-0xa00], R8 ;
+        /*46d0*/  STS.128 [R25+-0x600], R8 ;
+        /*4950*/  STS.128 [R25+-0x800], R8 ;
+        /*4960*/  STS.128 [R25+-0x400], R12 ;
+        /*4970*/  STS.128 [R25+-0x200], R16 ;
+        /*4980*/  STS.128 [R25], R20 ;
+        /*49a0*/  BAR.ARV R26, 0x40 ;
+        /*49b0*/  @!P0 BRA 0x35b0 ;
+        /*49f0*/  @!P0 BRA 0x3050 ;
+"""
+
+# two rounds of the chain-floor probe's loop from the same build: the
+# round is LEA.HI (rotl5(a) + e + wk) then IMAD.IADD (+ f), f's LOP3 and
+# rotl30's SHF beside them
+PROBE_ROUNDS = [
+    "IMAD.IADD R11, R5, 0x1, R0.reuse",
+    "LOP3.LUT R5, R7.reuse, R4, R9, 0xb8, !PT",
+    "IMAD.IADD R10, R7, 0x1, R0",
+    "SHF.L.W.U32.HI R4, R4, 0x1e, R4",
+    "IMAD.IADD R12, R9.reuse, 0x1, R0",
+    "LEA.HI R8, R6, R11, R6, 0x5",
+    "UIADD3 UR4, UR4, 0x1, URZ",
+    "LOP3.LUT R7, R9, R6, R4, 0xb8, !PT",
+    "IMAD.IADD R11, R4, 0x1, R0",
+    "SHF.L.W.U32.HI R6, R6, 0x1e, R6",
+    "IMAD.IADD R5, R5, 0x1, R8",
+    "LEA.HI R10, R5.reuse, R10, R5.reuse, 0x5",
+    "LOP3.LUT R8, R4, R5, R6, 0xb8, !PT",
+    "SHF.L.W.U32.HI R5, R5, 0x1e, R5",
+    "IMAD.IADD R7, R7, 0x1, R10",
+]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class TestSassCounter:
+    """chip_smoke.py's count of the built kernel's instructions a block,
+    on real SASS: a parser regression fails here, not only on the card."""
+
+    def test_functions_and_loops(self):
+        smoke = _chip_smoke()
+        functions = smoke.sass_functions(SASS_EXCERPT)
+        (name,) = functions
+        assert re.search(smoke.MAIN_FUNCTION, name)
+        code = functions[name]
+        assert len(code) == 105 and code[0] == (0x360, "IMAD.IADD R16, R7, 0x1, R16")
+        # guard predicates are stripped; LDS RZ-style dummies are apart
+        assert (0x1f20, "BRA 0x360") in code
+        assert smoke._loops(code) == [(0x360, 0x1F20), (0x3050, 0x49F0), (0x35B0, 0x49B0)]
+        assert smoke._opcode("LDS RZ, [RZ]") == "LDS.RZ"
+        assert smoke._opcode("LDS.128 R12, [R24+0x8400]") == "LDS"
+
+    def test_block_cost_by_pipe_and_warp(self):
+        smoke = _chip_smoke()
+        cost = smoke.sass_block_cost(SASS_EXCERPT, smoke.MAIN_FUNCTION, stage_blocks=4)
+        assert cost["blocks_per_trip"] == {"schedule": 1, "rounds": 1}
+        # round warp: 16 rounds' instructions (LOP3 4, SHF 3, LEA 2 on the
+        # ALU pipe; IMAD 7 on the FMA pipe), 20 LDS.128, 2 BAR, 1 BRA
+        rounds = cost["round_warp"]
+        assert (rounds["issued"], rounds["alu"], rounds["fma"]) == (39, 9, 7)
+        assert rounds["warp_clocks"] == 39  # issue-bound: 1 a clock
+        assert rounds["by_opcode"]["LDS"] == 20
+        # schedule warp: its block loop (47) plus the stage loop's own 19
+        # (16 LDGSTS, DEPBAR, 2 BRA) over the stage's 4 blocks
+        schedule = cost["schedule_warp"]
+        assert schedule["issued"] == 47 + 19 / 4
+        assert (schedule["alu"], schedule["fma"]) == (2, 3)  # ISETP; VIADD
+        assert schedule["by_opcode"]["STS"] == 20 and schedule["by_opcode"]["LDS"] == 16
+        assert cost["copies"] == 4  # 16-byte copies a lane, 2 KiB a warp
+        assert cost["issued"] == 39 + 47 + 19 / 4
+        assert (cost["alu"], cost["fma"]) == (11, 10)
+        assert cost["sm_clocks"] == pytest.approx((39 + 47 + 19 / 4) / 128)
+        assert "warp_clocks" not in cost
+        # the longest chain: IMAD.IADD 0x360 -> LEA.HI 0x3b0 -> IMAD.IADD
+        # 0x3d0 -> LEA.HI 0x400 -> IMAD.IADD 0x430
+        assert cost["chain_depth"] == 5
+
+    def test_a_round_is_two_dependent_instructions(self):
+        smoke = _chip_smoke()
+        # e + wk (IMAD.IADD R11, off the chain: ready a round early), then
+        # a -> LEA.HI R8 -> IMAD.IADD R5 -> LEA.HI R10 -> IMAD.IADD R7
+        assert smoke.chain_depth(PROBE_ROUNDS) == 1 + 2 * 2
+        # a round's chain, alone: LEA.HI then IMAD.IADD
+        assert smoke.chain_depth(PROBE_ROUNDS[5:6] + PROBE_ROUNDS[10:11]) == 2
+
+    def test_block_cost_needs_the_loops_it_divides_by(self):
+        smoke = _chip_smoke()
+        without_stores = "\n".join(
+            line for line in SASS_EXCERPT.splitlines() if "STS" not in line
+        )
+        with pytest.raises(AssertionError, match="schedule loop"):
+            smoke.sass_block_cost(without_stores, smoke.MAIN_FUNCTION, stage_blocks=4)
+        with pytest.raises(AssertionError, match="names"):
+            smoke.sass_block_cost(SASS_EXCERPT, "no_such_kernel", stage_blocks=4)
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -526,7 +732,7 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_triton_or_reference_package():
     files = sorted((REPO / "downloader_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "sha1_tune.py"]
     assert len(files) > 20
     offenders = [
         f"{path.relative_to(REPO)}: {name}"
