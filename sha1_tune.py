@@ -14,8 +14,10 @@ held against hashlib on ragged batches at the edges of its ring (``B``
 below, at and above ``S*K``; ``P`` of 1, 33, 1024 and 1031) and against
 the first build at the timed shapes, then all are timed on the same
 inputs in turns (order reversed every round) with CUDA events: the main
-path's shapes ``P=1024, 64, 8`` at ``B=16385`` (1 MiB pieces) and the
-engine's one-lane calibration chain (``P=1, B=1024``). The chain-floor
+path's shapes ``P=1024, 64, 8`` at ``B=16385`` (1 MiB pieces), the
+engine's one-lane calibration chain (``P=1, B=1024``), and ``P=1024, 64``
+again with the same words 4 bytes past a 16-byte boundary, where the
+kernel takes its 4-byte copies (``_off4``). The chain-floor
 probe of the default build is timed beside them, and ``nvidia-smi``
 samples the SM clock while the kernels run. One JSON line per build,
 with its SASS counts by pipe; the disassembly of each build goes to
@@ -42,6 +44,7 @@ import chip_smoke
 from downloader_tpu_torch.parallel import pack, sha1_cuda
 
 SHAPES = ((1024, 16385), (64, 16385), (8, 16385), (1, 1024))
+OFFSET_SHAPES = ((1024, 16385), (64, 16385))  # timed again with rows off 16 bytes
 CHECK_PIECES = (1, 33, 1024, 1031)
 ROUNDS = 7
 
@@ -173,9 +176,18 @@ def main() -> int:
                                dtype=torch.int32, device=device)
         inputs[(count, num_blocks)] = (blocks, torch.full(
             (count,), num_blocks, dtype=torch.int32, device=device))
+    # the same words 4 bytes past a 16-byte boundary: the 4-byte copies
+    for count, num_blocks in OFFSET_SHAPES:
+        blocks, nblocks = inputs[(count, num_blocks)]
+        moved = torch.empty(blocks.numel() + 1, dtype=torch.int32, device=device)
+        moved = moved[1:].view(blocks.shape)
+        moved.copy_(blocks)
+        assert moved.data_ptr() % 16 == 4
+        inputs[(count, num_blocks, "off4")] = (moved, nblocks)
     first = next(iter(libs))
     for shape, (blocks, nblocks) in inputs.items():
-        want = launch(libs[first], blocks, nblocks)
+        base = inputs[shape[:2]]
+        want = launch(libs[first], *base)
         for name, lib in libs.items():
             assert torch.equal(launch(lib, blocks, nblocks), want), (name, shape)
     torch.cuda.synchronize()
@@ -212,11 +224,11 @@ def main() -> int:
               flush=True)
     for name, entry in report.items():
         entry["times"] = {
-            f"P{count}_B{num_blocks}": {
+            "_".join([f"P{shape[0]}", f"B{shape[1]}", *shape[2:]]): {
                 "ms": statistics.median(runs), "runs_ms": runs,
-                "ns_per_block": statistics.median(runs) * 1e6 / num_blocks,
+                "ns_per_block": statistics.median(runs) * 1e6 / shape[1],
             }
-            for (count, num_blocks), runs in times[name].items()
+            for shape, runs in times[name].items()
         }
         print(json.dumps({"build": name, **entry}), flush=True)
     return 0
