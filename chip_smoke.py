@@ -284,14 +284,6 @@ def sass_probe_cost(sass: str, function: str) -> dict:
     }
 
 
-def source_define(name: str, source=sha1_cuda.SOURCE) -> int:
-    """The default of ``SHA1_<name>`` in a kernel source: STAGES,
-    STAGE_BLOCKS (blocks a ring stage), SCHEDULE_SLOTS."""
-    found = re.search(rf"#define SHA1_{name} (\d+)", source.read_text())
-    assert found, f"SHA1_{name} not found in {source}"
-    return int(found.group(1))
-
-
 def bounds(nblocks: torch.Tensor, cost: dict) -> dict:
     """Least time the card could take for this batch: each valid block
     read once (plus counts in, states out) over HBM, and each valid
@@ -701,7 +693,8 @@ def main() -> int:
     sha1_cuda.load()
     build_s = time.perf_counter() - start
     sass = disassemble(str(built))
-    cost = sass_block_cost(sass, MAIN_FUNCTION, source_define("STAGE_BLOCKS"))
+    _, stage_blocks = sha1_cuda.RING
+    cost = sass_block_cost(sass, MAIN_FUNCTION, stage_blocks)
     emit(
         "build",
         seconds=build_s,

@@ -41,8 +41,9 @@
 //      (LDGSTS) under commit_group / wait_group. A lane reads column
 //      `lane` of each row: no bank conflict. Rows are copied 16 bytes a
 //      lane when every row starts on 16 bytes (P % 4 == 0, the main
-//      path's shapes), else 4 bytes a lane; lanes past P take the
-//      zero-fill form (src-size 0) and read nothing.
+//      path's shapes), else 4 bytes a lane, some 2 % slower at the main
+//      path's shapes (PERF.md); lanes past P take the zero-fill form
+//      (src-size 0) and read nothing.
 //   2. Nothing but rounds beside it. With the schedule in the same
 //      thread, one warp issued about 520 ALU-pipe instructions a block;
 //      a sub-partition's ALU pipe is 16 lanes wide, so that is 1040
@@ -73,32 +74,24 @@
 
 #include <cuda_runtime.h>
 
-// The kernel's rings; sha1_tune.py builds other values with -D to measure
-// them against each other.
-#ifndef SHA1_STAGES
-#define SHA1_STAGES 4
-#endif
-#ifndef SHA1_STAGE_BLOCKS
-#define SHA1_STAGE_BLOCKS 4
-#endif
-#ifndef SHA1_SCHEDULE_SLOTS
-#define SHA1_SCHEDULE_SLOTS 4
-#endif
-
 namespace {
 
+// kStages and kStageBlocks are also RING in parallel/sha1_cuda.py, for
+// the tests and chip_smoke.py.
 constexpr int kThreads = 64;  // warp 0 schedules, warp 1 runs the rounds
-constexpr int kStages = SHA1_STAGES;  // depth of the message ring
-constexpr int kStageBlocks = SHA1_STAGE_BLOCKS;
-constexpr int kScheduleSlots = SHA1_SCHEDULE_SLOTS;  // blocks of W + K
+constexpr int kStages = 4;  // depth of the message ring
+constexpr int kStageBlocks = 4;
+constexpr int kScheduleSlots = 4;  // blocks of W + K
 constexpr int kBlockWords = 16 * 32;  // one block of a group's 32 pieces
 constexpr int kStageWords = kStageBlocks * kBlockWords;
 constexpr int kRingWords = kStages * kStageWords;
 constexpr int kSlotWords = 80 * 32;  // W[t] + K_t of one block
 constexpr int kSharedBytes = (kRingWords + kScheduleSlots * kSlotWords) * 4;
 static_assert(kStages >= 2 && kStageBlocks >= 1, "a ring needs two stages");
-static_assert(kScheduleSlots >= 1 && 2 * kScheduleSlots < 16,
-              "two named barriers a slot, and barrier 0 left alone");
+// the round warp waits for block b + 1's slot while it still holds
+// block b's, so the two must differ
+static_assert(kScheduleSlots >= 2 && 2 * kScheduleSlots < 16,
+              "two slots or more; two named barriers a slot, barrier 0 left alone");
 static_assert(kSharedBytes <= 232448, "the rings exceed a CTA's shared memory");
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int n) {

@@ -30,6 +30,8 @@ import torch
 from . import sha1
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sha1.cu"
+# the kernel's message ring: kStages stages of kStageBlocks blocks
+RING = (4, 4)
 
 
 def _build_dir(root: Path) -> Path:

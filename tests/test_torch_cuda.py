@@ -12,7 +12,6 @@ is not installed.
 """
 
 import hashlib
-import re
 
 import numpy as np
 import pytest
@@ -36,15 +35,6 @@ def card():
 def _pieces(sizes, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.bytes(int(n)) for n in sizes]
-
-
-def _ring():
-    """(stages, blocks a stage) of the kernel's ring, from its source."""
-    text = sha1_cuda.SOURCE.read_text()
-    return tuple(
-        int(re.search(rf"#define SHA1_{name} (\d+)", text).group(1))
-        for name in ("STAGES", "STAGE_BLOCKS")
-    )
 
 
 def _sized(rng, ends):
@@ -125,7 +115,7 @@ def test_ragged_lanes_around_the_ring(card, count, depth):
     # B below, at and above the ring's blocks; the lanes end at every
     # offset within a stage and across stage boundaries; P % 4 == 0 takes
     # the 16-byte copies, the other counts the 4-byte ones
-    stages, stage_blocks = _ring()
+    stages, stage_blocks = sha1_cuda.RING
     ring = stages * stage_blocks
     num_blocks = {"below": ring - 1, "at": ring, "above": ring + stage_blocks + 1}[depth]
     ends = [1 + (7 * lane) % num_blocks for lane in range(count)]

@@ -505,6 +505,13 @@ class TestKernelWrapper:
         assert name == f"libsha1-{digest}.so"
         assert sha1_cuda.BUILD_DIR == REPO / "build" / "downloader_tpu_torch"
 
+    def test_ring_constant_matches_the_source(self):
+        # the tests and chip_smoke.py size their cases by RING
+        text = sha1_cuda.SOURCE.read_text()
+        stages, stage_blocks = sha1_cuda.RING
+        assert f"constexpr int kStages = {stages};" in text
+        assert f"constexpr int kStageBlocks = {stage_blocks};" in text
+
     def test_installed_package_builds_into_the_user_cache(self, tmp_path):
         # installed, the package's grandparent is site-packages: no
         # pyproject.toml there, so the build goes where the user can write
@@ -732,7 +739,7 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_triton_or_reference_package():
     files = sorted((REPO / "downloader_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "sha1_tune.py"]
+    files += [REPO / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [
         f"{path.relative_to(REPO)}: {name}"
