@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path and one job on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -10,7 +10,10 @@ against its plain PyTorch version and hashlib, drives the main path at
 full size through the entry points a user calls (``make_torrent``,
 ``PieceStore.resume_existing``, ``_PieceBatch``) on a 1 GiB payload made
 from the seed, checks every answer, times the kernel and the path around
-it, and prints one JSON line per phase. The last line is
+it, and prints one JSON line per phase. The ``job`` phase then runs
+``python3 -m downloader_tpu_torch download-once`` on the same payload
+against a loopback origin and the port's S3 stub, three times, and holds
+the stored object against the payload. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -18,15 +21,19 @@ script exits non-zero without it. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import base64
 import ctypes
 import hashlib
+import http.server
 import json
 import os
 import statistics
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -47,6 +54,8 @@ from downloader_tpu_torch.parallel.pack import (
     pack_pieces,
     to_gpu_layout,
 )
+from downloader_tpu_torch.store import Credentials
+from downloader_tpu_torch.store.stub import S3Stub
 
 # the JAX package's test set of padding edge cases (tests/test_parallel.py)
 EDGE_SIZES = (0, 1, 3, 55, 56, 57, 63, 64, 65, 119, 120, 128, 1000, 16384)
@@ -55,6 +64,10 @@ PIECE_LENGTH = 1 << 20
 RESUME_BATCH_BYTES = 64 * 1024 * 1024  # PieceStore.resume_existing's default
 LIVE_BATCH_PIECES = 8  # _PieceBatch's default 8 MiB flush at 1 MiB pieces
 REPS = 5
+JOB_RUNS = 3
+JOB_NAME = "Show.S01E01.mkv"
+JOB_TIMEOUT_S = 300  # one download-once subprocess; ~10 s expected
+JOB_SPANS = ("fetch", "backend", "scan", "upload")
 
 # H100 SXM peaks: HBM 3.35 TB/s; 132 SMs at 1.98 GHz (the clock of the
 # 67 TFLOP/s fp32 figure, 128 fp32 lanes x 2 x 132). Per SM and clock,
@@ -667,6 +680,176 @@ def phase_profile(main: dict) -> None:
     )
 
 
+class _OriginHandler(http.server.BaseHTTPRequestHandler):
+    """Serves one file from disk: HEAD, and GET with ``Range`` answered
+    206, so the job's default HEAD probe stripes the fetch. Anything
+    else is a 404."""
+
+    protocol_version = "HTTP/1.1"  # keep-alive, as the segments expect
+    timeout = 60
+    file_path = ""
+
+    def log_message(self, *args) -> None:
+        pass
+
+    def do_HEAD(self) -> None:
+        self._answer(send=False)
+
+    def do_GET(self) -> None:
+        self._answer(send=True)
+
+    def _answer(self, send: bool) -> None:
+        if self.path != "/" + os.path.basename(self.file_path):
+            self.send_response(404)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        size = os.path.getsize(self.file_path)
+        start, end = 0, size
+        ranged = self.headers.get("Range", "")
+        if send and ranged.startswith("bytes="):
+            lo, _, hi = ranged[len("bytes="):].partition("-")
+            start, end = int(lo), min(size, int(hi) + 1 if hi else size)
+            self.send_response(206)
+            self.send_header("Content-Range", f"bytes {start}-{end - 1}/{size}")
+        else:
+            self.send_response(200)
+        self.send_header("Content-Length", str(end - start))
+        self.send_header("Accept-Ranges", "bytes")
+        self.end_headers()
+        if send:
+            with open(self.file_path, "rb") as source:
+                self.connection.sendfile(source, start, end - start)
+
+
+class _OriginServer(http.server.ThreadingHTTPServer):
+    daemon_threads = True
+
+    def handle_error(self, request, client_address) -> None:
+        # a job's pooled keep-alive connections reset when its process
+        # exits; anything else is a real fault
+        if not isinstance(sys.exc_info()[1], ConnectionError):
+            super().handle_error(request, client_address)
+
+
+def _run_job(url: str, base_dir: str, trace_out: str, env: dict) -> tuple:
+    """One ``download-once`` in a child interpreter (its own GIL, apart
+    from the origin and the stub in this process): (exit code, stdout,
+    wall seconds, stderr)."""
+    command = [
+        sys.executable, "-m", "downloader_tpu_torch", "--trace-out", trace_out,
+        "download-once", "--id", "episode-1", "--url", url, "--base-dir", base_dir,
+    ]
+    start = time.perf_counter()
+    done = subprocess.run(
+        command, env=env, cwd=base_dir, capture_output=True, text=True,
+        timeout=JOB_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - start
+    return done.returncode, done.stdout, wall, done.stderr
+
+
+def phase_job(payload: bytes, workdir: str, card: str) -> dict:
+    """``python3 -m downloader_tpu_torch download-once`` of the 1 GiB
+    episode from a loopback origin into the port's S3 stub, JOB_RUNS
+    times, each into a fresh base directory and a fresh stub; then a
+    404 that must fail and store nothing. Every object is held against
+    the payload by SHA-256. All times are host wall clock on the card's
+    machine: this path does no device work."""
+    phase_start = time.perf_counter()
+    origin_dir = os.path.join(workdir, "origin")
+    os.makedirs(origin_dir)
+    origin_file = os.path.join(origin_dir, JOB_NAME)
+    with open(origin_file, "wb") as sink:
+        sink.write(payload)
+    want_sha256 = hashlib.sha256(payload).hexdigest()
+    key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {
+        name: value
+        for name, value in os.environ.items()
+        if not name.startswith(("HTTP_SEGMENT", "S3_", "TRACE", "ZEROCOPY"))
+    }
+    env.update(
+        PYTHONPATH=repo, S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk"
+    )
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+
+    handler = type("Origin", (_OriginHandler,), {"file_path": origin_file})
+    server = _OriginServer(("127.0.0.1", 0), handler)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    runs = []
+    try:
+        for run in range(JOB_RUNS + 1):
+            failing = run == JOB_RUNS
+            base_dir = os.path.join(workdir, f"job-{run}")
+            os.makedirs(base_dir)
+            trace_out = os.path.join(base_dir, "trace.json")
+            url = f"{base_url}/{'missing.mkv' if failing else JOB_NAME}"
+            with S3Stub(credentials=credentials) as stub:
+                env["S3_ENDPOINT"] = f"http://{stub.endpoint}"
+                code, stdout, wall, stderr = _run_job(url, base_dir, trace_out, env)
+                objects = {
+                    (bucket, name): data
+                    for bucket, stored in stub.buckets.items()
+                    for name, data in stored.items()
+                }
+                dangling = stub.list_multipart_uploads()
+                multiparts = stub.completed_multiparts
+            if failing:
+                assert code == 1, f"404 job exited {code}: {stderr[-2000:]}"
+                assert objects == {} and dangling == [], "404 job stored something"
+                continue
+            assert code == 0, f"job exited {code}: {stderr[-2000:]}"
+            printed = stdout.splitlines()
+            assert printed == [os.path.join(base_dir, "episode-1", JOB_NAME)], printed
+            assert list(objects) == [("triton-staging", key)], list(objects)
+            got_sha256 = hashlib.sha256(objects["triton-staging", key]).hexdigest()
+            assert got_sha256 == want_sha256, "stored object != payload"
+            assert dangling == [] and multiparts == 1, (dangling, multiparts)
+            del objects
+            with open(trace_out) as trace:
+                events = json.load(trace)["traceEvents"]
+            spans_ms = {}
+            for event in events:
+                if event.get("ph") == "X" and event["name"] in JOB_SPANS:
+                    spans_ms[event["name"]] = spans_ms.get(event["name"], 0) + event["dur"] / 1e3
+            job_status = [e for e in events if e.get("name") == "job"][0]["args"]["status"]
+            assert job_status == "ok", job_status
+            assert set(spans_ms) == set(JOB_SPANS), spans_ms
+            runs.append({"wall_s": wall, "spans_ms": spans_ms})
+            shutil.rmtree(base_dir)
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+    walls = [run["wall_s"] for run in runs]
+    median_wall = statistics.median(walls)
+    fields = dict(
+        clock="host wall clock on the card's machine; no device work on this path",
+        seconds=time.perf_counter() - phase_start,
+        payload_bytes=len(payload),
+        runs=JOB_RUNS,
+        wall_s_median=median_wall,
+        wall_s_runs=walls,
+        MBps_median=len(payload) / median_wall / 1e6,
+        spans_ms_median={
+            name: statistics.median(run["spans_ms"][name] for run in runs)
+            for name in JOB_SPANS
+        },
+        spans_ms_runs=[run["spans_ms"] for run in runs],
+        object_sha256_equal_payload=True,
+        not_found_exit=1,
+        host_cpus=os.cpu_count(),
+        host_cpus_usable=len(os.sched_getaffinity(0)),
+        card=card,
+    )
+    emit("job", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -721,6 +904,7 @@ def main() -> int:
         main_path = phase_main_path(payload, workdir, bad)
         main_shape = phase_times(payload, main_path, cost)
         phase_profile(main_path)
+        phase_job(payload, workdir, card)
 
     kernel = dict(KERNEL)
     kernel.update(

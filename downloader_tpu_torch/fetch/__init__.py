@@ -1,1 +1,8 @@
-from .http import TransferError  # noqa: F401
+from .dispatch import (  # noqa: F401
+    Backend,
+    BackendRegistration,
+    DispatchClient,
+    ProgressFn,
+    UnsupportedJobError,
+)
+from .http import HTTPBackend, TransferError  # noqa: F401
