@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path and one job on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job and one torrent job on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -13,7 +13,12 @@ from the seed, checks every answer, times the kernel and the path around
 it, and prints one JSON line per phase. The ``job`` phase then runs
 ``python3 -m downloader_tpu_torch download-once`` on the same payload
 against a loopback origin and the port's S3 stub, three times, and holds
-the stored object against the payload. The last line is
+the stored object against the payload. The ``torrent_shapes`` phase
+times the kernel at the torrent path's shapes (256 KiB pieces), and the
+``torrent`` phase serves the payload from the port's ``Seeder`` and runs
+``download-once`` of its magnet in a child process, once from nothing
+and once resuming half of the file, counting the kernel's launches
+inside the job's own process. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -68,6 +73,17 @@ JOB_RUNS = 3
 JOB_NAME = "Show.S01E01.mkv"
 JOB_TIMEOUT_S = 300  # one download-once subprocess; ~10 s expected
 JOB_SPANS = ("fetch", "backend", "scan", "upload")
+# the torrent phase: the same episode as a 256 KiB-piece torrent, the
+# piece length mktorrent picks by default (-l 18); 4096 pieces of 4097
+# SHA-1 blocks each
+TORRENT_PIECE = 256 * 1024
+# pieces per engine call at that piece length: a live _PieceBatch flush
+# (8 MiB), a resume flush (64 MiB), the seeder's make_torrent (1 GiB)
+TORRENT_SHAPES = (8 * 1024 * 1024 // TORRENT_PIECE, RESUME_BATCH_BYTES // TORRENT_PIECE,
+                  PAYLOAD_BYTES // TORRENT_PIECE)
+TORRENT_PLAIN_SHAPE = TORRENT_SHAPES[0]  # the plain version runs here only
+TORRENT_SPANS = ("job", "fetch", "backend", "peer-connect", "piece", "scan", "upload")
+TORRENT_JOB_TIMEOUT_S = 600  # one swarm job; about a minute expected
 
 # H100 SXM peaks: HBM 3.35 TB/s; 132 SMs at 1.98 GHz (the clock of the
 # 67 TFLOP/s fp32 figure, 128 fp32 lanes x 2 x 132). Per SM and clock,
@@ -850,6 +866,411 @@ def phase_job(payload: bytes, workdir: str, card: str) -> dict:
     return fields
 
 
+def phase_torrent_shapes(payload: bytes, cost: dict) -> dict:
+    """The kernel at the torrent path's shapes (256 KiB pieces, B=4097):
+    a live flush, a resume flush and the seeder's make_torrent, each held
+    bit-exact against hashlib, and against the plain version at the live
+    flush's shape (the plain version takes 1.5 minutes at B=4097)."""
+    device = torch.device("cuda", 0)
+    pieces = [
+        payload[i : i + TORRENT_PIECE] for i in range(0, PAYLOAD_BYTES, TORRENT_PIECE)
+    ]
+    width = max_blocks(pieces) * 64
+    pinned = torch.empty((len(pieces), width), dtype=torch.uint8, pin_memory=True)
+    _, counts = pack_bytes(pieces, out=pinned.numpy())
+    raw = pinned.to(device)
+    nblocks_all = torch.from_numpy(counts).to(device)
+    shapes = {}
+    worst = 0
+    for count in TORRENT_SHAPES:
+        blocks = to_gpu_layout(raw[:count])
+        nblocks = nblocks_all[:count].contiguous()
+        states = sha1_cuda.sha1_batch_cuda(blocks, nblocks)
+        got = digests_to_bytes(states.cpu().numpy(), count)
+        want = [hashlib.sha1(piece).digest() for piece in pieces[:count]]
+        assert got == want, f"P={count}: kernel digests != hashlib"
+        ms, runs = cuda_ms(lambda: sha1_cuda.sha1_batch_cuda(blocks, nblocks))
+        entry = {
+            "P": count,
+            "B": blocks.shape[0],
+            "kernel_ms": ms,
+            "kernel_runs_ms": runs,
+            "kernel_ns_per_block": ms * 1e6 / blocks.shape[0],
+            "GBps": count * TORRENT_PIECE / ms / 1e6,
+            "equal_hashlib": True,
+            **bounds(nblocks, cost),
+        }
+        if count == TORRENT_PLAIN_SHAPE:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = sha1.sha1_states(blocks, nblocks)
+            end.record()
+            end.synchronize()
+            err = int(np.abs(as_uint32(states) - as_uint32(plain)).max())
+            assert err == 0, f"P={count}: kernel differs from plain by {err}"
+            worst = max(worst, err)
+            entry.update(plain_ms=start.elapsed_time(end), max_abs_err=err)
+        shapes[f"P{count}_B{blocks.shape[0]}"] = entry
+    floor_ms, floor_runs = chain_floor_ms(raw.shape[1] // 64)
+    emit(
+        "torrent_shapes",
+        piece_length=TORRENT_PIECE,
+        shapes=shapes,
+        chain_floor_ms=floor_ms,
+        chain_floor_runs_ms=floor_runs,
+        max_abs_err=worst,
+    )
+    return {"max_abs_err": worst, "shapes": shapes}
+
+
+def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
+    """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
+    job's own, and write what the digest engine and the card did to
+    ``report_path``: the kernel wrapper's launches split into resume,
+    calibration and live flushes, the default engine's batch counts, and
+    the device time by kernel under a CUDA-only profiler. The tracer's
+    span cap is raised so that every piece span is kept. ``rehearse``
+    puts a hashlib engine in place of the card (a CPU rehearsal)."""
+    from contextlib import nullcontext
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from downloader_tpu_torch import cli
+    from downloader_tpu_torch.parallel import engine as engine_module
+    from downloader_tpu_torch.utils import tracing
+
+    tracing.MAX_SPANS_PER_TRACE = 1 << 20
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    counts = {"resume": 0, "resume_device_batches": 0, "calibration": 0, "resumed": []}
+    # host seconds and calls of the layers under the swarm: the resume,
+    # a live flush (verify + store write), the engine's verify in both
+    layers = {"resume_existing": [0, 0.0], "piece_batch_flush": [0, 0.0],
+              "engine_verify": [0, 0.0]}
+
+    def timed(cls, method: str, layer: str) -> None:
+        inner = getattr(cls, method)
+
+        def wrapper(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                layers[layer][0] += 1
+                layers[layer][1] += time.perf_counter() - start
+
+        setattr(cls, method, wrapper)
+
+    timed(_PieceBatch, "flush", "piece_batch_flush")
+    timed(DigestEngine, "verify_pieces", "engine_verify")
+    timed(PieceStore, "resume_existing", "resume_existing")
+    resume_existing = PieceStore.resume_existing
+    measure = DigestEngine._measure_calibration
+
+    def counted_resume(self, engine=None, *args, **kwargs):
+        engine = engine or engine_module.default_engine()
+        before = sha1_cuda.launches, counts["calibration"], engine.device_batches
+        resumed = resume_existing(self, engine, *args, **kwargs)
+        counts["resume"] += (
+            sha1_cuda.launches - before[0] - (counts["calibration"] - before[1])
+        )
+        counts["resume_device_batches"] += engine.device_batches - before[2]
+        counts["resumed"].append(resumed)
+        return resumed
+
+    def counted_calibration(self):
+        before = sha1_cuda.launches
+        try:
+            return measure(self)
+        finally:
+            counts["calibration"] += sha1_cuda.launches - before
+
+    PieceStore.resume_existing = counted_resume
+    DigestEngine._measure_calibration = counted_calibration
+    sha1_cuda.launches = 0
+    profiler = nullcontext() if rehearse else profile(activities=[ProfilerActivity.CUDA])
+    stamps = {"started": time.time()}
+    with profiler:
+        stamps["job_start"] = time.time()
+        start = time.perf_counter()
+        code = cli.main(argv)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        stamps["job_end"] = time.time()
+    stamps["profiler_stopped"] = time.time()
+    device = {}
+    if not rehearse:
+        for event in profiler.key_averages():
+            if event.device_type == DeviceType.CUDA:
+                device[event.key] = {
+                    "ms": event.self_device_time_total / 1e3,
+                    "count": event.count,
+                }
+    engine = engine_module._default
+    total = sha1_cuda.launches
+    report = {
+        "code": code,
+        "wall_s": wall_s,
+        "stamps": stamps,
+        "launches": total,
+        "launches_resume": counts["resume"],
+        "launches_calibration": counts["calibration"],
+        "launches_live": total - counts["resume"] - counts["calibration"],
+        "resume_device_batches": counts["resume_device_batches"],
+        "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
+        "resumed": counts["resumed"],
+        "device_batches": engine.device_batches if engine else 0,
+        "host_batches": engine.host_batches if engine else 0,
+        "backend_name": engine.backend_name if engine else None,
+        "device_busy_ms": sum(row["ms"] for row in device.values()),
+        "device_by_name": device,
+        "kernel_launches_by_name": {
+            name: row["count"] for name, row in device.items() if "sha1" in name
+        },
+    }
+    with open(report_path, "w") as sink:
+        json.dump(report, sink)
+    return code
+
+
+class _WholeBitfield:
+    """A connection that has every piece, for timing the claim pool."""
+
+    bitfield = b""
+
+    def has_piece(self, index: int) -> bool:
+        return True
+
+    def queue_have(self, index: int) -> None:
+        pass
+
+
+def claim_pool_s(info: dict, workdir: str, flush_pieces: int) -> float:
+    """Host seconds the swarm's claim pool takes to hand one peer every
+    piece of ``info``, completing them ``flush_pieces`` at a time as the
+    live flushes do: the claims alone, no network and no hashing."""
+    from downloader_tpu_torch.fetch.swarmstate import _SwarmState
+
+    swarm = _SwarmState(PieceStore(info, workdir), lambda percent: None, 1.0)
+    conn = _WholeBitfield()
+    swarm.register(conn)
+    store, pending = swarm.store, []
+    start = time.perf_counter()
+    while (index := swarm.claim(conn)) is not None:
+        pending.append(index)
+        if len(pending) == flush_pieces:
+            for done in pending:
+                store.have[done] = True
+            pending = []
+    elapsed = time.perf_counter() - start
+    assert len(pending) + sum(store.have) == store.num_pieces, "claims lost pieces"
+    return elapsed
+
+
+def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool) -> dict:
+    """One ``download-once`` of the magnet in a child interpreter under
+    ``counted_job``: (exit code, stdout, stderr, wall seconds, report,
+    span ms by name)."""
+    report_path = os.path.join(base_dir, "report.json")
+    trace_out = os.path.join(base_dir, "trace.json")
+    command = [
+        sys.executable, os.path.abspath(__file__), "--counted-job", report_path,
+        *(["--rehearse"] if rehearse else []), "--",
+        "--trace-out", trace_out, "download-once", "--id", "episode-1",
+        "--url", magnet, "--base-dir", base_dir,
+    ]
+    launched = time.time()
+    start = time.perf_counter()
+    done = subprocess.run(
+        command, env=env, cwd=base_dir, capture_output=True, text=True,
+        timeout=TORRENT_JOB_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - start
+    ended = time.time()
+    assert done.returncode == 0, f"torrent job exited {done.returncode}: {done.stderr[-3000:]}"
+    with open(report_path) as source:
+        report = json.load(source)
+    stamps = report.pop("stamps")
+    # where the child's wall went, on the host clock: interpreter start
+    # and imports, the profiler's start, the job, its stop, the exit
+    report["process_s"] = {
+        "start": stamps["started"] - launched,
+        "profiler_start": stamps["job_start"] - stamps["started"],
+        "job": stamps["job_end"] - stamps["job_start"],
+        "profiler_stop": stamps["profiler_stopped"] - stamps["job_end"],
+        "exit": ended - stamps["profiler_stopped"],
+    }
+    with open(trace_out) as trace:
+        events = json.load(trace)["traceEvents"]
+    spans = [event for event in events if event.get("ph") == "X"]
+    # every span name's count and summed ms (spans of one name may
+    # overlap: piece spans of concurrent workers)
+    by_name: dict = {}
+    for event in spans:
+        count, ms = by_name.get(event["name"], (0, 0.0))
+        by_name[event["name"]] = (count + 1, ms + event["dur"] / 1e3)
+    spans_ms = {name: by_name.get(name, (0, 0.0))[1] for name in TORRENT_SPANS}
+    job_status = [e for e in spans if e["name"] == "job"][0]["args"]["status"]
+    assert job_status == "ok", job_status
+    return {
+        "stdout": done.stdout, "stderr": done.stderr, "wall_s": wall,
+        "report": report, "spans_ms": spans_ms,
+        "spans_by_name": {name: {"count": c, "ms": ms} for name, (c, ms) in by_name.items()},
+    }
+
+
+def phase_torrent(payload: bytes, workdir: str, card: str, rehearse: bool = False) -> dict:
+    """The torrent engine end to end: the port's ``Seeder`` in this
+    process serves the episode as a 256 KiB-piece torrent; ``python3 -m
+    downloader_tpu_torch download-once`` of its magnet runs in a child
+    process (its own GIL) into a fresh S3 stub, once from nothing and
+    once with the first half of the file already in the job directory.
+    The child counts the kernel's launches in its own process; each run
+    must launch it on the live path, the resume run on the resume too,
+    and the profiler must see every launch the wrapper counted.
+    ``rehearse`` runs it on a host without a card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+
+    phase_start = time.perf_counter()
+    num_pieces = len(payload) // TORRENT_PIECE
+    half = num_pieces // 2
+    want_sha256 = hashlib.sha256(payload).hexdigest()
+    key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {
+        name: value
+        for name, value in os.environ.items()
+        if not name.startswith(("HTTP_SEGMENT", "S3_", "TRACE", "ZEROCOPY", "PEER_",
+                                "DIGEST_", "DHT_", "LSD", "UTP_"))
+    }
+    # the magnet carries the tracker; the card's machine has no network
+    env.update(
+        PYTHONPATH=repo, S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk",
+        DHT_BOOTSTRAP="off", LSD="off",
+    )
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    else:
+        # the default engine's calibration launches stay out of the count
+        engine_module.default_engine()._calibrate()
+        torch.cuda.synchronize()
+    sha1_cuda.launches = 0
+    start = time.perf_counter()
+    seeder = Seeder(JOB_NAME, payload, piece_length=TORRENT_PIECE)
+    seed_s = time.perf_counter() - start
+    seed_launches = sha1_cuda.launches
+    table = b"".join(
+        hashlib.sha1(payload[i : i + TORRENT_PIECE]).digest()
+        for i in range(0, len(payload), TORRENT_PIECE)
+    )
+    assert seeder.info[b"pieces"] == table, "seeder's piece table != hashlib"
+    claims_s = claim_pool_s(seeder.info, workdir, TORRENT_SHAPES[0])
+    runs = []
+    try:
+        seeder.start()
+        for kind in ("full", "resume"):
+            base_dir = os.path.join(workdir, f"torrent-{len(runs)}")
+            os.makedirs(os.path.join(base_dir, "episode-1"))
+            if kind == "resume":
+                with open(os.path.join(base_dir, "episode-1", JOB_NAME), "wb") as sink:
+                    sink.write(payload[: half * TORRENT_PIECE])
+            seeder.served_requests.clear()
+            with S3Stub(credentials=credentials) as stub:
+                env["S3_ENDPOINT"] = f"http://{stub.endpoint}"
+                job = _torrent_job(seeder.magnet_uri, base_dir, env, rehearse)
+                objects = {
+                    (bucket, name): data
+                    for bucket, stored in stub.buckets.items()
+                    for name, data in stored.items()
+                }
+                dangling = stub.list_multipart_uploads()
+            assert job["stdout"].splitlines() == [
+                os.path.join(base_dir, "episode-1", JOB_NAME)
+            ], job["stdout"]
+            assert list(objects) == [("triton-staging", key)], list(objects)
+            got_sha256 = hashlib.sha256(objects["triton-staging", key]).hexdigest()
+            assert got_sha256 == want_sha256, f"{kind}: stored object != payload"
+            assert dangling == [], dangling
+            del objects
+            report = job["report"]
+            fetched = sorted(set(seeder.served_requests))
+            if kind == "resume":
+                assert report["resumed"] == [half], report["resumed"]
+                assert f"resumed={half}" in job["stderr"], "no resume log line"
+                assert fetched == list(range(half, num_pieces)), "resume refetched"
+            else:
+                assert report["resumed"] == [0], report["resumed"]
+                assert fetched == list(range(num_pieces)), "pieces not fetched"
+            if not rehearse:
+                seen = sum(report["kernel_launches_by_name"].values())
+                assert seen == report["launches"], (seen, report["launches"])
+                assert report["launches_live"] > 0, f"{kind}: no live launch"
+                assert report["launches_live"] == (
+                    report["device_batches"] - report["resume_device_batches"]
+                ), report
+                if kind == "resume":
+                    assert report["launches_resume"] > 0, "no resume launch"
+                    assert report["launches_resume"] == report["resume_device_batches"]
+            moved = len(payload) - (half * TORRENT_PIECE if kind == "resume" else 0)
+            runs.append({
+                "kind": kind,
+                "wall_s": job["wall_s"],
+                "job_wall_s": report["wall_s"],
+                "MBps": len(payload) / job["wall_s"] / 1e6,
+                "MBps_fetched": moved / job["wall_s"] / 1e6,
+                "process_s": report["process_s"],
+                "spans_ms": job["spans_ms"],
+                "spans_by_name": job["spans_by_name"],
+                "layers_s": report["layers_s"],
+                "device_busy_ms": report["device_busy_ms"],
+                "device_idle_share": 1 - report["device_busy_ms"] / (report["wall_s"] * 1e3),
+                **{k: report[k] for k in (
+                    "launches", "launches_live", "launches_resume", "launches_calibration",
+                    "device_batches", "host_batches", "backend_name",
+                    "kernel_launches_by_name", "device_by_name",
+                )},
+            })
+            shutil.rmtree(base_dir)
+    finally:
+        seeder.stop()
+    full, resume = runs
+    steps = {
+        "torrent_seed": seed_launches,
+        "torrent_live": sum(run["launches_live"] for run in runs),
+        "torrent_resume": resume["launches_resume"],
+        "torrent_calibration": sum(run["launches_calibration"] for run in runs),
+    }
+    if not rehearse:
+        assert steps["torrent_live"] > 0 and steps["torrent_resume"] > 0, steps
+    fields = dict(
+        clock="host wall clock on the card's machine; device time from the job's profiler",
+        seconds=time.perf_counter() - phase_start,
+        payload_bytes=len(payload),
+        piece_length=TORRENT_PIECE,
+        pieces=num_pieces,
+        seed_make_torrent_s=seed_s,
+        claim_pool_s=claims_s,
+        runs=runs,
+        full_wall_s=full["wall_s"],
+        full_MBps=full["MBps"],
+        resume_wall_s=resume["wall_s"],
+        resume_MBps_fetched=resume["MBps_fetched"],
+        resumed_pieces=half,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        object_sha256_equal_payload=True,
+        host_cpus=os.cpu_count(),
+        card=card,
+    )
+    emit("torrent", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -862,6 +1283,11 @@ def nvidia_smi() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--counted-job"]:
+        # the torrent phase's child: python3 chip_smoke.py --counted-job
+        # REPORT [--rehearse] -- <downloader_tpu_torch arguments>
+        split = sys.argv.index("--")
+        return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in sys.argv[3:split])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -905,11 +1331,15 @@ def main() -> int:
         main_shape = phase_times(payload, main_path, cost)
         phase_profile(main_path)
         phase_job(payload, workdir, card)
+        torrent_shapes = phase_torrent_shapes(payload, cost)
+        torrent = phase_torrent(payload, workdir, card)
 
     kernel = dict(KERNEL)
     kernel.update(
-        launches=main_path["launches"],
-        max_abs_err=max(checked["max_abs_err"], main_shape["max_abs_err"]),
+        launches=main_path["launches"] + torrent["launches"],
+        max_abs_err=max(
+            checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
+        ),
         ms=main_shape["kernel_ms"],
         plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"],

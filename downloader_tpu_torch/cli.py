@@ -4,7 +4,9 @@
 with no broker — download → scan → upload — the minimum slice of the
 reference's pipeline (cmd/downloader/downloader.go:116-147 without the
 AMQP wrapper), as ``python -m downloader_tpu download-once`` does.
-``serve`` exits 2 until the port has the queue-driven daemon.
+A job takes a magnet URI, an http(s) URL of a ``.torrent`` file, or a
+plain http(s) URL. ``serve`` exits 2 until the port has the
+queue-driven daemon.
 
 The reference's single CLI flag is ``-cpuprofile`` writing a pprof CPU
 profile (cmd/downloader/downloader.go:26,32-43); ``--cpuprofile`` here
@@ -100,15 +102,112 @@ def _download_once(args: argparse.Namespace) -> int:
     return 0 if not result.failed else 1
 
 
-def _default_backends():
-    """The HTTP backend, its knobs read from the env (HTTP_SEGMENTS /
-    HTTP_POOL_* / ZEROCOPY).
+def _dht_bootstrap_from_env() -> tuple[tuple[str, int], ...] | None:
+    """DHT_BOOTSTRAP env: unset/empty = BEP 5 default routers;
+    "off" disables DHT; otherwise "host:port,host:port"."""
+    from .fetch.magnet import parse_hostport
 
-    The port registers the HTTP backend only: the BitTorrent backend and
-    its env readers (DHT_BOOTSTRAP, PEER_ENCRYPTION, PEER_TRANSPORT,
-    TRACKER_ANNOUNCE, LSD) come with the torrent engine. Until then a
-    ``magnet:`` or ``.torrent`` URL fails with UnsupportedJobError."""
-    return [HTTPBackend(zero_copy=zero_copy_from_env())]
+    raw = os.environ.get("DHT_BOOTSTRAP", "").strip()
+    if not raw:
+        return None
+    if raw.lower() in ("off", "none", "disabled", "0"):
+        return ()
+    nodes = []
+    for part in raw.split(","):
+        node = parse_hostport(part)
+        if node is not None:
+            nodes.append(node)
+        else:
+            log.with_fields(entry=part.strip()).warning(
+                "ignoring malformed DHT_BOOTSTRAP entry (want host:port)"
+            )
+    if not nodes:
+        # a fully-malformed value must not silently become the
+        # disable-DHT sentinel (); fall back to the defaults loudly
+        log.warning(
+            "DHT_BOOTSTRAP had no usable host:port entries; using defaults"
+        )
+        return None
+    return tuple(nodes)
+
+
+def _encryption_from_env() -> str:
+    """PEER_ENCRYPTION env: MSE policy off|allow|prefer|require
+    (default allow — accept both inbound, plaintext-first outbound
+    with MSE fallback, matching anacrolix's default posture)."""
+    from .fetch.peerwire import ENCRYPTION_MODES
+
+    raw = os.environ.get("PEER_ENCRYPTION", "").strip().lower()
+    if not raw:
+        return "allow"
+    if raw not in ENCRYPTION_MODES:
+        log.with_fields(value=raw).warning(
+            "unknown PEER_ENCRYPTION (want off|allow|prefer|require); "
+            "using 'allow'"
+        )
+        return "allow"
+    return raw
+
+
+def _transport_from_env() -> str:
+    """PEER_TRANSPORT env: outbound transport policy tcp|utp|both
+    (default both — TCP first with uTP fallback, the posture the
+    reference gets from anacrolix)."""
+    from .fetch.peerwire import TRANSPORT_MODES
+
+    raw = os.environ.get("PEER_TRANSPORT", "").strip().lower()
+    if not raw:
+        return "both"
+    if raw not in TRANSPORT_MODES:
+        log.with_fields(value=raw).warning(
+            "unknown PEER_TRANSPORT (want tcp|utp|both); using 'both'"
+        )
+        return "both"
+    return raw
+
+
+def _announce_all_from_env() -> bool:
+    """TRACKER_ANNOUNCE env: 'tiered' (default — BEP 12 tier order,
+    per-tier shuffle, promote-on-success) or 'all' (announce to every
+    tracker concurrently; bounded latency when most are dead)."""
+    raw = os.environ.get("TRACKER_ANNOUNCE", "").strip().lower()
+    if raw in ("", "tiered"):
+        return False
+    if raw == "all":
+        return True
+    log.with_fields(value=raw).warning(
+        "unknown TRACKER_ANNOUNCE (want tiered|all); using 'tiered'"
+    )
+    return False
+
+
+def _default_backends():
+    """The BitTorrent backend, then the HTTP backend, each with its knobs
+    read from the env (DHT_BOOTSTRAP / PEER_ENCRYPTION / PEER_TRANSPORT /
+    LSD / TRACKER_ANNOUNCE; HTTP_SEGMENTS / HTTP_POOL_* / ZEROCOPY).
+
+    The daemon's arguments (one shared DHT node with DHT_STATE_PATH, the
+    HTTP knobs from its Config) come with the daemon; a one-shot job
+    builds its own DHT node, like the reference's per-job client
+    (torrent.go:43-44). The torrent backend's module is light: the
+    swarm engine, and with it the digest engine, loads only when a
+    torrent job runs."""
+    from .fetch.torrent import TorrentBackend
+    from .utils import flag_from_env
+
+    # torrent first, then http, matching the reference's registration order
+    # (cmd/downloader/downloader.go:87-90)
+    return [
+        TorrentBackend(
+            dht_bootstrap=_dht_bootstrap_from_env(),
+            encryption=_encryption_from_env(),
+            transport=_transport_from_env(),
+            # LSD env: "off" disables BEP 14 multicast discovery
+            lsd=flag_from_env("LSD"),
+            announce_all=_announce_all_from_env(),
+        ),
+        HTTPBackend(zero_copy=zero_copy_from_env()),
+    ]
 
 
 def main(argv: list[str] | None = None) -> int:

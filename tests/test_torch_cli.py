@@ -1,7 +1,8 @@
 """``download-once`` of the port against the JAX package's, end to end.
 
-Both ``main()``s run against one loopback origin, each uploading into
-an S3 stub of its own package. They must give the same exit codes, the
+Both ``main()``s run against one loopback origin (an HTTP file, or a
+torrent seeder reached by magnet or by a ``.torrent`` URL), each
+uploading into an S3 stub of its own package. They must give the same exit codes, the
 same printed media paths (relative to each base directory), the same
 bucket contents, the same counter moves and, with ``--trace-out``, the
 same span names and nesting. Times are not compared. Each package keeps
@@ -23,7 +24,10 @@ from downloader_tpu.store import Credentials as RefCredentials
 from downloader_tpu.store.stub import S3Stub as RefS3Stub
 from downloader_tpu.utils import metrics as ref_metrics
 from downloader_tpu.utils import tracing as ref_tracing
+import downloader_tpu.parallel.engine as ref_engine
 from downloader_tpu_torch import cli
+import downloader_tpu_torch.parallel.engine as port_engine
+from downloader_tpu_torch.fetch.seeder import Seeder, make_torrent
 from downloader_tpu_torch.store import Credentials
 from downloader_tpu_torch.store.stub import S3Stub
 from downloader_tpu_torch.utils import metrics, tracing
@@ -32,6 +36,7 @@ from test_torch_http import TIMEOUT, Origin, _payload
 REPO = Path(__file__).resolve().parents[1]
 NAME = "Show.S01E01.mkv"
 KEY = f"episode-1/original/{base64.b64encode(NAME.encode()).decode()}"
+MOVIE = _payload(5 * 16 * 1024 + 321)
 # the metric families a download-once moves; threads other tests left
 # running in this process may move other families of the JAX package
 FAMILIES = ("http_", "flow_", "s3_", "fetch_", "scan_", "upload_", "overhead_")
@@ -59,6 +64,9 @@ def _default_env(monkeypatch):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("S3_ACCESS_KEY", "ak")
     monkeypatch.setenv("S3_SECRET_KEY", "sk")
+    # torrent jobs stay on loopback: no DHT routers, no LAN multicast
+    monkeypatch.setenv("DHT_BOOTSTRAP", "off")
+    monkeypatch.setenv("LSD", "off")
 
 
 def _span_tree(events):
@@ -166,14 +174,49 @@ def test_serve_exits_2_without_the_daemon(monkeypatch):
     assert cli.main(["serve"]) == ref_cli.main(["serve"]) == 2
 
 
-def test_magnet_url_exits_1_until_the_torrent_engine(tmp_path):
-    # the port registers the HTTP backend only, so a magnet link has no
-    # backend and the job fails cleanly (the reference would fetch it)
-    code = cli.main([
-        "download-once", "--id", "m", "--url", "magnet:?xt=urn:btih:" + "ab" * 20,
-        "--base-dir", str(tmp_path), "--skip-upload",
-    ])
-    assert code == 1
+@pytest.fixture
+def hashlib_engines(monkeypatch):
+    # the torrent jobs verify pieces through each package's default
+    # engine; hashlib keeps them light (the card path has its own tests)
+    monkeypatch.setattr(port_engine, "_default", port_engine.DigestEngine(backend="hashlib"))
+    monkeypatch.setattr(ref_engine, "_default", ref_engine.DigestEngine(backend="hashlib"))
+
+
+def test_magnet_url_exits_1_until_the_torrent_engine(monkeypatch, capsys, tmp_path,
+                                                     hashlib_engines):
+    """A magnet job: it exited 1 while the port had no torrent engine;
+    now both main()s fetch it from a loopback seeder (the magnet carries
+    the tracker), exit 0 and store the same objects."""
+    with Seeder(NAME, MOVIE, piece_length=16 * 1024) as seeder:
+        args = ["download-once", "--id", "episode-1", "--url", seeder.magnet_uri]
+        port, ref = (_run(monkeypatch, capsys, tmp_path, package, args)
+                     for package in PACKAGES)
+    assert port == ref
+    assert port["code"] == 0 and port["printed"] == [f"episode-1/{NAME}"]
+    assert port["bucket"] == {"triton-staging": {KEY: MOVIE}}
+    (job,) = port["spans"]
+    assert [child[0] for child in job[1]] == ["fetch", "scan", "upload"]
+
+
+def test_torrent_file_url_matches_reference(monkeypatch, capsys, tmp_path, hashlib_engines):
+    with Seeder(NAME, MOVIE, piece_length=16 * 1024) as seeder:
+        _, meta, _ = make_torrent(NAME, MOVIE, piece_length=16 * 1024,
+                                  trackers=(seeder.tracker_url,))
+        server = Origin(meta)
+        try:
+            args = ["download-once", "--id", "episode-1", "--url", server.url + "/x.torrent"]
+            port, ref = (_run(monkeypatch, capsys, tmp_path, package, args)
+                         for package in PACKAGES)
+            missing = ["download-once", "--id", "episode-2", "--url",
+                       server.url + "/missing/y.torrent"]
+            port_missing, ref_missing = (_run(monkeypatch, capsys, tmp_path, package, missing)
+                                         for package in PACKAGES)
+        finally:
+            server.close()
+    assert port == ref
+    assert port["code"] == 0 and port["bucket"] == {"triton-staging": {KEY: MOVIE}}
+    assert port_missing["code"] == ref_missing["code"] == 1
+    assert port_missing["bucket"] == ref_missing["bucket"] == {}
 
 
 def test_http_job_never_touches_cuda(origin, tmp_path):
