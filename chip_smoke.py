@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job and one torrent job on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job and the queue-driven daemon on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -18,7 +18,13 @@ times the kernel at the torrent path's shapes (256 KiB pieces), and the
 ``torrent`` phase serves the payload from the port's ``Seeder`` and runs
 ``download-once`` of its magnet in a child process, once from nothing
 and once resuming half of the file, counting the kernel's launches
-inside the job's own process. The last line is
+inside the job's own process. The ``daemon`` phase runs ``python3 -m
+downloader_tpu_torch serve`` with its default configuration in a child
+process against the port's AMQP and S3 stubs: two magnet jobs (the
+episode and a 256 MiB torrent) whose flushes share the card, then a
+burst of 48 small HTTP jobs on the batched lane; it checks every
+Convert and stored object, counts the worker's kernel launches and ends
+the worker with SIGTERM. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -35,11 +41,15 @@ import os
 import statistics
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import Counter
 
 import numpy as np
@@ -84,6 +94,32 @@ TORRENT_SHAPES = (8 * 1024 * 1024 // TORRENT_PIECE, RESUME_BATCH_BYTES // TORREN
 TORRENT_PLAIN_SHAPE = TORRENT_SHAPES[0]  # the plain version runs here only
 TORRENT_SPANS = ("job", "fetch", "backend", "peer-connect", "piece", "scan", "upload")
 TORRENT_JOB_TIMEOUT_S = 600  # one swarm job; about a minute expected
+# the daemon phase: a media pipeline's consumer, whole-episode torrents
+# next to a burst of small clips and extras over HTTP
+DAEMON_SECOND_BYTES = 256 * 1024 * 1024  # a second torrent, 1024 pieces
+DAEMON_CLIPS = 48
+DAEMON_CLIP_BYTES = (1 << 20, 4 << 20)  # at most BATCH_MAX_BYTES: the batched lane
+DAEMON_SECOND_NAME = "Show.S01E02.mkv"
+DAEMON_WAIT_S = 600  # both torrent jobs; about a minute expected
+# what a child job or worker takes from this process's environment: the
+# host's own variables and no knob of the port, so every knob a phase
+# does not set stays at its default
+HOST_ENV = {
+    "PATH", "HOME", "TMPDIR", "TMP", "TEMP", "USER", "LOGNAME", "SHELL", "TZ", "LANG",
+    "LD_LIBRARY_PATH", "VIRTUAL_ENV", "XDG_CACHE_HOME",
+}
+HOST_ENV_PREFIXES = ("LC_", "CUDA_", "NVIDIA_")
+
+
+def child_env(**knobs: str) -> dict:
+    """The environment of a child job or worker: the host's variables of
+    this process and ``knobs``."""
+    env = {
+        name: value for name, value in os.environ.items()
+        if name in HOST_ENV or name.startswith(HOST_ENV_PREFIXES)
+    }
+    env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)), **knobs)
+    return env
 
 # H100 SXM peaks: HBM 3.35 TB/s; 132 SMs at 1.98 GHz (the clock of the
 # 67 TFLOP/s fp32 figure, 128 fp32 lanes x 2 x 132). Per SM and clock,
@@ -697,13 +733,13 @@ def phase_profile(main: dict) -> None:
 
 
 class _OriginHandler(http.server.BaseHTTPRequestHandler):
-    """Serves one file from disk: HEAD, and GET with ``Range`` answered
-    206, so the job's default HEAD probe stripes the fetch. Anything
-    else is a 404."""
+    """Serves the files of one directory: HEAD, and GET with ``Range``
+    answered 206, so the job's default HEAD probe stripes the fetch and
+    the daemon's batched lane can size a job. Anything else is a 404."""
 
     protocol_version = "HTTP/1.1"  # keep-alive, as the segments expect
     timeout = 60
-    file_path = ""
+    root = ""
 
     def log_message(self, *args) -> None:
         pass
@@ -715,12 +751,13 @@ class _OriginHandler(http.server.BaseHTTPRequestHandler):
         self._answer(send=True)
 
     def _answer(self, send: bool) -> None:
-        if self.path != "/" + os.path.basename(self.file_path):
+        file_path = os.path.join(self.root, os.path.basename(self.path))
+        if self.path != "/" + os.path.basename(self.path) or not os.path.isfile(file_path):
             self.send_response(404)
             self.send_header("Content-Length", "0")
             self.end_headers()
             return
-        size = os.path.getsize(self.file_path)
+        size = os.path.getsize(file_path)
         start, end = 0, size
         ranged = self.headers.get("Range", "")
         if send and ranged.startswith("bytes="):
@@ -734,7 +771,7 @@ class _OriginHandler(http.server.BaseHTTPRequestHandler):
         self.send_header("Accept-Ranges", "bytes")
         self.end_headers()
         if send:
-            with open(self.file_path, "rb") as source:
+            with open(file_path, "rb") as source:
                 self.connection.sendfile(source, start, end - start)
 
 
@@ -780,18 +817,10 @@ def phase_job(payload: bytes, workdir: str, card: str) -> dict:
         sink.write(payload)
     want_sha256 = hashlib.sha256(payload).hexdigest()
     key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = {
-        name: value
-        for name, value in os.environ.items()
-        if not name.startswith(("HTTP_SEGMENT", "S3_", "TRACE", "ZEROCOPY"))
-    }
-    env.update(
-        PYTHONPATH=repo, S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk"
-    )
+    env = child_env(S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk")
     credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
 
-    handler = type("Origin", (_OriginHandler,), {"file_path": origin_file})
+    handler = type("Origin", (_OriginHandler,), {"root": origin_dir})
     server = _OriginServer(("127.0.0.1", 0), handler)
     serving = threading.Thread(target=server.serve_forever, daemon=True)
     serving.start()
@@ -927,11 +956,15 @@ def phase_torrent_shapes(payload: bytes, cost: dict) -> dict:
 def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
-    ``report_path``: the kernel wrapper's launches split into resume,
-    calibration and live flushes, the default engine's batch counts, and
-    the device time by kernel under a CUDA-only profiler. The tracer's
-    span cap is raised so that every piece span is kept. ``rehearse``
-    puts a hashlib engine in place of the card (a CPU rehearsal)."""
+    ``report_path`` once ``cli.main`` returns: for ``download-once`` when
+    the job ends, for ``serve`` when SIGTERM has made the daemon drain
+    and return. The report holds the kernel wrapper's launches split
+    into resume, calibration and live flushes, the default engine's
+    batch counts, the most ``verify_pieces`` calls in flight at once,
+    and the device time by kernel under a CUDA-only profiler. The
+    tracer's span cap is raised so that every piece span is kept.
+    ``rehearse`` puts a hashlib engine in place of the card (a CPU
+    rehearsal)."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -944,22 +977,33 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
     tracing.MAX_SPANS_PER_TRACE = 1 << 20
     if rehearse:
         engine_module._default = DigestEngine(backend="hashlib")
-    counts = {"resume": 0, "resume_device_batches": 0, "calibration": 0, "resumed": []}
+    counts = {"live": 0, "resume": 0, "calibration": 0, "resume_device_batches": 0,
+              "resumed": [], "verify_window": [float("inf"), float("-inf")]}
     # host seconds and calls of the layers under the swarm: the resume,
     # a live flush (verify + store write), the engine's verify in both
     layers = {"resume_existing": [0, 0.0], "piece_batch_flush": [0, 0.0],
               "engine_verify": [0, 0.0]}
+    # calls of each layer in flight now and at most (the daemon runs
+    # jobs on several threads)
+    in_flight = {layer: [0, 0] for layer in layers}
+    layers_lock = threading.Lock()
 
     def timed(cls, method: str, layer: str) -> None:
         inner = getattr(cls, method)
 
         def wrapper(*args, **kwargs):
+            with layers_lock:
+                in_flight[layer][0] += 1
+                in_flight[layer][1] = max(in_flight[layer])
             start = time.perf_counter()
             try:
                 return inner(*args, **kwargs)
             finally:
-                layers[layer][0] += 1
-                layers[layer][1] += time.perf_counter() - start
+                elapsed = time.perf_counter() - start
+                with layers_lock:
+                    in_flight[layer][0] -= 1
+                    layers[layer][0] += 1
+                    layers[layer][1] += elapsed
 
         setattr(cls, method, wrapper)
 
@@ -968,27 +1012,66 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
     timed(PieceStore, "resume_existing", "resume_existing")
     resume_existing = PieceStore.resume_existing
     measure = DigestEngine._measure_calibration
+    use_device = DigestEngine._use_device
+    verify = DigestEngine.verify_pieces
+    launch = sha1_cuda.sha1_batch_cuda
+    # the step a thread is in: the daemon runs jobs on several threads, so
+    # a launch or a device batch is the resume's (or the calibration's)
+    # only if its own thread is inside resume_existing (or the calibration)
+    local = threading.local()
+
+    def step() -> str:
+        if getattr(local, "calibrating", False):
+            return "calibration"
+        return "resume" if getattr(local, "resuming", False) else "live"
+
+    def counted_launch(blocks, nblocks):
+        states = launch(blocks, nblocks)
+        with layers_lock:
+            counts[step()] += 1
+        return states
+
+    def counted_use_device(self, pieces):
+        use = use_device(self, pieces)
+        if use and step() == "resume":
+            with layers_lock:
+                counts["resume_device_batches"] += 1
+        return use
 
     def counted_resume(self, engine=None, *args, **kwargs):
         engine = engine or engine_module.default_engine()
-        before = sha1_cuda.launches, counts["calibration"], engine.device_batches
-        resumed = resume_existing(self, engine, *args, **kwargs)
-        counts["resume"] += (
-            sha1_cuda.launches - before[0] - (counts["calibration"] - before[1])
-        )
-        counts["resume_device_batches"] += engine.device_batches - before[2]
+        local.resuming = True
+        try:
+            resumed = resume_existing(self, engine, *args, **kwargs)
+        finally:
+            local.resuming = False
         counts["resumed"].append(resumed)
         return resumed
 
     def counted_calibration(self):
-        before = sha1_cuda.launches
+        local.calibrating = True
         try:
             return measure(self)
         finally:
-            counts["calibration"] += sha1_cuda.launches - before
+            local.calibrating = False
+
+    def stamped_verify(self, *args, **kwargs):
+        # the epoch seconds of the first verify_pieces call and of the
+        # end of the last: the daemon's device work lies in between
+        with layers_lock:
+            counts["verify_window"][0] = min(counts["verify_window"][0], time.time())
+        try:
+            return verify(self, *args, **kwargs)
+        finally:
+            with layers_lock:
+                counts["verify_window"][1] = max(counts["verify_window"][1], time.time())
 
     PieceStore.resume_existing = counted_resume
     DigestEngine._measure_calibration = counted_calibration
+    DigestEngine._use_device = counted_use_device
+    DigestEngine.verify_pieces = stamped_verify
+    # sha1_states looks the wrapper up in its module at each call
+    sha1_cuda.sha1_batch_cuda = counted_launch
     sha1_cuda.launches = 0
     profiler = nullcontext() if rehearse else profile(activities=[ProfilerActivity.CUDA])
     stamps = {"started": time.time()}
@@ -1011,16 +1094,20 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
                 }
     engine = engine_module._default
     total = sha1_cuda.launches
+    assert total == counts["live"] + counts["resume"] + counts["calibration"], (total, counts)
+    first, last = counts["verify_window"]
     report = {
         "code": code,
         "wall_s": wall_s,
         "stamps": stamps,
+        "verify_window": [first, last] if first <= last else None,
         "launches": total,
         "launches_resume": counts["resume"],
         "launches_calibration": counts["calibration"],
-        "launches_live": total - counts["resume"] - counts["calibration"],
+        "launches_live": counts["live"],
         "resume_device_batches": counts["resume_device_batches"],
         "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
+        "max_in_flight": {name: most for name, (_, most) in in_flight.items()},
         "resumed": counts["resumed"],
         "device_batches": engine.device_batches if engine else 0,
         "host_batches": engine.host_batches if engine else 0,
@@ -1140,17 +1227,9 @@ def phase_torrent(payload: bytes, workdir: str, card: str, rehearse: bool = Fals
     half = num_pieces // 2
     want_sha256 = hashlib.sha256(payload).hexdigest()
     key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = {
-        name: value
-        for name, value in os.environ.items()
-        if not name.startswith(("HTTP_SEGMENT", "S3_", "TRACE", "ZEROCOPY", "PEER_",
-                                "DIGEST_", "DHT_", "LSD", "UTP_"))
-    }
     # the magnet carries the tracker; the card's machine has no network
-    env.update(
-        PYTHONPATH=repo, S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk",
-        DHT_BOOTSTRAP="off", LSD="off",
+    env = child_env(
+        S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off",
     )
     credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
     if rehearse:
@@ -1271,6 +1350,282 @@ def phase_torrent(payload: bytes, workdir: str, card: str, rehearse: bool = Fals
     return fields
 
 
+def _free_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def _get(url: str) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(url, timeout=30) as answer:
+            return answer.status, answer.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, ""
+    except OSError:
+        return 0, ""
+
+
+def _percentile(values: list[float], share: float) -> float:
+    return float(np.percentile(np.array(values), share))
+
+
+def phase_daemon(payload: bytes, second: bytes, clips: dict, workdir: str, card: str,
+                 rehearse: bool = False) -> dict:
+    """``python3 -m downloader_tpu_torch serve`` with its default
+    configuration in a child process (``counted_job``), fed over AMQP by
+    this process, which runs the port's ``AmqpServerStub``, an
+    ``S3Stub``, two ``Seeder``s (the episode, and a second torrent of
+    ``second``; 256 KiB pieces) and a HEAD/Range origin with the
+    ``clips``. The traffic: the two magnet jobs, the second as soon as
+    the first fetches pieces, so the daemon's two workers run them at
+    once and their flushes share the card; then every clip as one burst,
+    which the batched lane takes. Every Convert must arrive on the
+    ``v1.convert`` shards with its job's media id, every stored object
+    must equal its payload by SHA-256, no multipart upload may be left
+    open, ``/metrics`` must count the jobs and the batched lane, and
+    SIGTERM must end the worker with exit 0. The worker's kernel
+    launches are split into live flushes and calibration and held
+    against its engine's device batches and its profiler's count.
+    ``rehearse`` runs it on a host without a card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+    from downloader_tpu_torch.queue.amqp import AmqpConnection
+    from downloader_tpu_torch.queue.amqp_server import AmqpServerStub
+    from downloader_tpu_torch.wire import Convert, Download, Media
+
+    phase_start = time.perf_counter()
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    episodes = {"episode-1": (JOB_NAME, payload), "episode-2": (DAEMON_SECOND_NAME, second)}
+    clip_dir = os.path.join(workdir, "clips")
+    os.makedirs(clip_dir)
+    for name, data in clips.items():
+        with open(os.path.join(clip_dir, name), "wb") as sink:
+            sink.write(data)
+    want = {  # object key -> SHA-256 of its payload
+        f"{media_id}/original/{base64.b64encode(name.encode()).decode()}":
+            hashlib.sha256(data).hexdigest()
+        for media_id, (name, data) in episodes.items()
+    }
+    clip_ids = {f"clip-{index:02d}": name for index, name in enumerate(sorted(clips))}
+    for media_id, name in clip_ids.items():
+        key = f"{media_id}/original/{base64.b64encode(name.encode()).decode()}"
+        want[key] = hashlib.sha256(clips[name]).hexdigest()
+
+    sha1_cuda.launches = 0
+    start = time.perf_counter()
+    seeders = {media_id: Seeder(name, data, piece_length=TORRENT_PIECE)
+               for media_id, (name, data) in episodes.items()}
+    seed_s = time.perf_counter() - start
+    seed_launches = sha1_cuda.launches
+    handler = type("Clips", (_OriginHandler,), {"root": clip_dir})
+    origin = _OriginServer(("127.0.0.1", 0), handler)
+    serving = threading.Thread(target=origin.serve_forever, daemon=True)
+    serving.start()
+    origin_url = f"http://127.0.0.1:{origin.server_address[1]}"
+    health_port = _free_port()
+    base_dir = os.path.join(workdir, "daemon")
+    os.makedirs(base_dir)
+    report_path = os.path.join(workdir, "daemon-report.json")
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    arrived: dict = {}  # media id -> perf_counter when its Convert arrived
+    published: dict = {}
+    worker = None
+    with AmqpServerStub(username="smoke", password="smoke-pw") as amqp, \
+            S3Stub(credentials=credentials) as stub:
+        try:
+            for seeder in seeders.values():
+                seeder.start()
+            env = child_env(
+                BROKER="amqp", RABBITMQ_ENDPOINT=amqp.endpoint,
+                RABBITMQ_USERNAME="smoke", RABBITMQ_PASSWORD="smoke-pw",
+                S3_ENDPOINT=f"http://{stub.endpoint}", S3_ACCESS_KEY="smoke-ak",
+                S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off",
+                HEALTH_PORT=str(health_port), JOB_CONCURRENCY="2",
+            )
+            # the Convert shards, declared here as the daemon's publisher
+            # declares them, and read straight off the stub's broker
+            sink = amqp.broker.connect().channel()
+            sink.declare_exchange("v1.convert")
+
+            def on_convert(message) -> None:
+                media_id = Convert.unmarshal(message.body).media.id
+                arrived.setdefault(media_id, time.perf_counter())
+                sink.ack(message.delivery_tag)
+
+            for shard in (0, 1):
+                sink.declare_queue(f"v1.convert-{shard}")
+                sink.bind_queue(f"v1.convert-{shard}", "v1.convert", f"v1.convert-{shard}")
+                sink.consume(f"v1.convert-{shard}", on_convert)
+
+            command = [
+                sys.executable, os.path.abspath(__file__), "--counted-job", report_path,
+                *(["--rehearse"] if rehearse else []), "--", "serve", "--base-dir", base_dir,
+            ]
+            with open(os.path.join(workdir, "daemon.err"), "wb") as errors:
+                worker = subprocess.Popen(command, env=env, cwd=base_dir,
+                                          stdout=subprocess.DEVNULL, stderr=errors)
+            health = f"http://127.0.0.1:{health_port}"
+            deadline = time.monotonic() + 180
+            while _get(health + "/readyz")[0] != 200:
+                assert worker.poll() is None, f"worker exited {worker.returncode}"
+                assert time.monotonic() < deadline, "worker never became ready"
+                time.sleep(0.2)
+            ready_s = time.perf_counter() - phase_start
+
+            producer = AmqpConnection.dial(amqp.endpoint, username="smoke", password="smoke-pw")
+            channel = producer.channel()
+            sent = 0
+
+            def publish(media_id: str, url: str) -> None:
+                nonlocal sent
+                body = Download(media=Media(id=media_id, source_uri=url)).marshal()
+                published[media_id] = time.perf_counter()
+                channel.publish("v1.download", f"v1.download-{sent % 2}", body)
+                sent += 1
+
+            def wait(ids, limit_s: float) -> None:
+                deadline = time.monotonic() + limit_s
+                while not all(media_id in arrived for media_id in ids):
+                    assert worker.poll() is None, f"worker exited {worker.returncode}"
+                    assert time.monotonic() < deadline, (
+                        f"no Convert for {sorted(set(ids) - set(arrived))}")
+                    time.sleep(0.05)
+
+            torrent_start = time.perf_counter()
+            torrent_start_epoch = time.time()
+            first, later = list(seeders)
+            publish(first, seeders[first].magnet_uri)
+            deadline = time.monotonic() + 120
+            while not seeders[first].served_requests:
+                assert time.monotonic() < deadline, "first torrent job never fetched"
+                time.sleep(0.01)
+            publish(later, seeders[later].magnet_uri)
+            wait(episodes, DAEMON_WAIT_S)
+            torrent_s = max(arrived[m] for m in episodes) - torrent_start
+            torrent_end_epoch = torrent_start_epoch + torrent_s
+
+            burst_start = time.perf_counter()
+            for media_id, name in clip_ids.items():
+                publish(media_id, f"{origin_url}/{name}")
+            wait(clip_ids, 300)
+            burst_s = max(arrived[m] for m in clip_ids) - burst_start
+            producer.close()
+
+            # a job's Convert is confirmed before its delivery is acked and
+            # counted: read /metrics until every job is counted
+            deadline = time.monotonic() + 60
+            while True:
+                status, exposition = _get(health + "/metrics")
+                assert status == 200, status
+                samples = dict(
+                    line.rsplit(" ", 1) for line in exposition.splitlines()
+                    if line.startswith("downloader_") and " " in line and "{" not in line
+                )
+                processed = float(samples.get("downloader_jobs_processed", 0))
+                fast = float(samples.get("downloader_batch_fast_jobs", 0))
+                if processed >= len(want) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            assert processed >= len(want), f"/metrics counts {processed} jobs"
+            assert fast > 0, "the burst never took the batched lane"
+
+            sigterm = time.time()
+            worker.send_signal(signal.SIGTERM)
+            code = worker.wait(timeout=180)
+            exit_s = time.time() - sigterm
+            assert code == 0, f"worker exited {code} after SIGTERM"
+            stored = {
+                key: hashlib.sha256(data).hexdigest()
+                for key, data in stub.buckets.get("triton-staging", {}).items()
+                # the canary plane's own probes, if one ran, are not jobs
+                if not key.startswith("canary-")
+            }
+            dangling = stub.list_multipart_uploads()
+        finally:
+            if worker is not None and worker.poll() is None:
+                worker.kill()
+                worker.wait(60)
+            for seeder in seeders.values():
+                seeder.stop()
+            origin.shutdown()
+            origin.server_close()
+            serving.join(timeout=60)
+    assert sorted(stored) == sorted(want), sorted(set(want) ^ set(stored))
+    for key, digest in want.items():
+        assert stored[key] == digest, f"{key}: stored object != payload"
+    assert dangling == [], dangling
+    for media_id in episodes:
+        fetched = sorted(set(seeders[media_id].served_requests))
+        assert fetched == list(range(len(episodes[media_id][1]) // TORRENT_PIECE)), media_id
+    with open(report_path) as source:
+        report = json.load(source)
+    steps = {
+        "daemon_seed": seed_launches,
+        "daemon_live": report["launches_live"],
+        "daemon_calibration": report["launches_calibration"],
+    }
+    expected_steps = {
+        "daemon_seed": len(episodes),
+        # one launch per 8 MiB _PieceBatch flush, every one on the card
+        "daemon_live": sum(len(d) for _, d in episodes.values()) // (8 << 20),
+        "daemon_calibration": 3,  # one engine in the worker
+    }
+    assert report["launches_resume"] == 0, report["launches_resume"]
+    # every verify_pieces call of the worker, and so all its device work
+    # (the worker touches the card nowhere else), lies in the torrent
+    # window: the busy time below is the window's
+    window = report["verify_window"]
+    assert window is not None, "the worker never verified a piece"
+    assert torrent_start_epoch <= window[0] and window[1] <= torrent_end_epoch, (
+        window, torrent_start_epoch, torrent_end_epoch)
+    if not rehearse:
+        seen = sum(report["kernel_launches_by_name"].values())
+        assert seen == report["launches"], (seen, report["launches"])
+        assert report["launches_live"] == report["device_batches"], report
+        assert report["host_batches"] == 0, report["host_batches"]
+        assert steps == expected_steps, (steps, expected_steps)
+    latencies = [arrived[m] - published[m] for m in clip_ids]
+    stamps = report["stamps"]
+    fields = dict(
+        clock="host wall clock on the card's machine; device time from the worker's profiler",
+        seconds=time.perf_counter() - phase_start,
+        worker_ready_s=ready_s,
+        seed_make_torrent_s=seed_s,
+        torrent_jobs={
+            media_id: {
+                "bytes": len(data), "pieces": len(data) // TORRENT_PIECE,
+                "publish_to_convert_s": arrived[media_id] - published[media_id],
+            }
+            for media_id, (_, data) in episodes.items()
+        },
+        torrent_window_s=torrent_s,
+        device_busy_ms=report["device_busy_ms"],
+        device_idle_share_torrent_window=1 - report["device_busy_ms"] / (torrent_s * 1e3),
+        small_jobs=len(clip_ids),
+        small_bytes=sum(len(data) for data in clips.values()),
+        small_publish_to_convert_s_p50=_percentile(latencies, 50),
+        small_publish_to_convert_s_p99=_percentile(latencies, 99),
+        small_jobs_per_s=len(clip_ids) / burst_s,
+        metrics_jobs_processed=processed,
+        metrics_batch_fast_jobs=fast,
+        sigterm_to_serve_return_s=stamps["job_end"] - sigterm,
+        sigterm_to_exit_s=exit_s,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        expected_launches_by_step=expected_steps,
+        **{k: report[k] for k in (
+            "device_batches", "host_batches", "backend_name", "max_in_flight",
+            "kernel_launches_by_name", "device_by_name", "layers_s",
+        )},
+        object_sha256_equal_payload=True,
+        card=card,
+    )
+    emit("daemon", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1284,8 +1639,9 @@ def nvidia_smi() -> str:
 
 def main() -> int:
     if sys.argv[1:2] == ["--counted-job"]:
-        # the torrent phase's child: python3 chip_smoke.py --counted-job
-        # REPORT [--rehearse] -- <downloader_tpu_torch arguments>
+        # the child of the torrent and daemon phases: python3
+        # chip_smoke.py --counted-job REPORT [--rehearse] --
+        # <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
         return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in sys.argv[3:split])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1333,10 +1689,16 @@ def main() -> int:
         phase_job(payload, workdir, card)
         torrent_shapes = phase_torrent_shapes(payload, cost)
         torrent = phase_torrent(payload, workdir, card)
+        second = rng.bytes(DAEMON_SECOND_BYTES)
+        clips = {
+            f"Extra.{index:02d}.mkv": rng.bytes(int(rng.integers(*DAEMON_CLIP_BYTES) + 1))
+            for index in range(DAEMON_CLIPS)
+        }
+        daemon = phase_daemon(payload, second, clips, workdir, card)
 
     kernel = dict(KERNEL)
     kernel.update(
-        launches=main_path["launches"] + torrent["launches"],
+        launches=main_path["launches"] + torrent["launches"] + daemon["launches"],
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),

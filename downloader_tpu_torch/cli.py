@@ -5,8 +5,9 @@ with no broker — download → scan → upload — the minimum slice of the
 reference's pipeline (cmd/downloader/downloader.go:116-147 without the
 AMQP wrapper), as ``python -m downloader_tpu download-once`` does.
 A job takes a magnet URI, an http(s) URL of a ``.torrent`` file, or a
-plain http(s) URL. ``serve`` exits 2 until the port has the
-queue-driven daemon.
+plain http(s) URL. ``python -m downloader_tpu_torch serve`` runs the
+queue-driven daemon in one process; the fleet (``--workers N`` with
+N > 1) is not in this build and exits 2.
 
 The reference's single CLI flag is ``-cpuprofile`` writing a pprof CPU
 profile (cmd/downloader/downloader.go:26,32-43); ``--cpuprofile`` here
@@ -27,7 +28,7 @@ import sys
 from .fetch import DispatchClient, HTTPBackend
 from .scan import scan_dir
 from .store import Uploader
-from .utils import configure_from_env, get_logger, tracing, zero_copy_from_env
+from .utils import configure_from_env, get_logger, tracing
 from .utils.cancel import CancelToken
 
 log = get_logger("cli")
@@ -65,9 +66,32 @@ def _build_parser() -> argparse.ArgumentParser:
         help="stop after scan (no S3_ENDPOINT needed)",
     )
 
-    # the daemon's options (--base-dir, --bucket, --concurrency,
-    # --workers) come with the daemon; until then `serve` exits 2
-    sub.add_parser("serve", help="run the queue-driven daemon (not in this build)")
+    serve = sub.add_parser("serve", help="run the queue-driven daemon")
+    # flag defaults come FROM the documented env contract: a fleet
+    # supervisor (or an operator) configuring BUCKET/DOWNLOAD_DIR in
+    # the environment must not be silently overridden by the argparse
+    # defaults riding every `serve` invocation
+    serve.add_argument(
+        "--base-dir",
+        default=os.environ.get("DOWNLOAD_DIR")
+        or os.path.join(os.getcwd(), "downloading"),
+    )
+    serve.add_argument(
+        "--bucket", default=os.environ.get("BUCKET", DEFAULT_BUCKET)
+    )
+    serve.add_argument(
+        "--concurrency",
+        type=int,
+        default=int(os.environ.get("JOB_CONCURRENCY", "1")),
+        help="parallel job workers (reference fixes this at 1, cmd:100-103)",
+    )
+    serve.add_argument(
+        "--workers",
+        type=int,
+        default=int(os.environ.get("FLEET_WORKERS", "0")),
+        help="worker processes; 0/1 = single process (default). The "
+        "crash-only fleet (N > 1) is not in this build and exits 2",
+    )
     return parser
 
 
@@ -181,19 +205,26 @@ def _announce_all_from_env() -> bool:
     return False
 
 
-def _default_backends():
+def _default_backends(
+    shared_dht: bool = False,
+    http_segments: int | None = None,
+    http_pool_per_host: int | None = None,
+    http_pool_idle: float | None = None,
+):
     """The BitTorrent backend, then the HTTP backend, each with its knobs
     read from the env (DHT_BOOTSTRAP / PEER_ENCRYPTION / PEER_TRANSPORT /
     LSD / TRACKER_ANNOUNCE; HTTP_SEGMENTS / HTTP_POOL_* / ZEROCOPY).
 
-    The daemon's arguments (one shared DHT node with DHT_STATE_PATH, the
-    HTTP knobs from its Config) come with the daemon; a one-shot job
-    builds its own DHT node, like the reference's per-job client
-    (torrent.go:43-44). The torrent backend's module is light: the
-    swarm engine, and with it the digest engine, loads only when a
-    torrent job runs."""
+    ``shared_dht=True`` (the daemon) keeps ONE process-lifetime DHT
+    node across jobs, with optional routing-table persistence via
+    DHT_STATE_PATH; the one-shot CLI keeps per-job construction like
+    the reference's per-job client (torrent.go:43-44). The HTTP knobs
+    default to the env (HTTP_SEGMENTS / HTTP_POOL_*); the daemon passes
+    its Config's resolved values instead so serve() has one source of
+    truth. The torrent backend's module is light: the swarm engine, and
+    with it the digest engine, loads only when a torrent job runs."""
     from .fetch.torrent import TorrentBackend
-    from .utils import flag_from_env
+    from .utils import flag_from_env, zero_copy_from_env
 
     # torrent first, then http, matching the reference's registration order
     # (cmd/downloader/downloader.go:87-90)
@@ -205,8 +236,17 @@ def _default_backends():
             # LSD env: "off" disables BEP 14 multicast discovery
             lsd=flag_from_env("LSD"),
             announce_all=_announce_all_from_env(),
+            shared_dht=shared_dht,
+            dht_state_path=(
+                os.environ.get("DHT_STATE_PATH") or None
+            ) if shared_dht else None,
         ),
-        HTTPBackend(zero_copy=zero_copy_from_env()),
+        HTTPBackend(
+            zero_copy=zero_copy_from_env(),
+            segments=http_segments,
+            pool_per_host=http_pool_per_host,
+            pool_idle=http_pool_idle,
+        ),
     ]
 
 
@@ -235,8 +275,19 @@ def main(argv: list[str] | None = None) -> int:
         if args.command == "download-once":
             return _download_once(args)
         if args.command == "serve":
-            log.error("the queue-driven daemon is not available in this build")
-            return 2
+            if args.workers and args.workers > 1:
+                log.with_fields(workers=args.workers).error(
+                    "the crash-only fleet is not available in this build; "
+                    "run serve without --workers"
+                )
+                return 2
+            from .daemon.app import serve
+
+            return serve(
+                base_dir=os.path.abspath(args.base_dir),
+                bucket=args.bucket,
+                concurrency=args.concurrency,
+            )
         raise AssertionError(f"unhandled command {args.command}")
     except Exception as exc:  # surface a clean error, not a traceback
         log.error("job failed", exc=exc)

@@ -16,15 +16,10 @@ Upgrades over the reference (its own TODO, uploader.go:61):
   raises UploadError if every file failed, so the daemon can leave the
   job unacked/retryable instead of acking a wholly failed upload;
 - multi-file batches upload through a small bounded pool instead of one
-  file at a time (the reference is strictly serial).
-
-The port leaves out the JAX package's streaming-pipeline hand-off:
-``configure_pipeline``, ``streaming_session``, the ``close`` that
-releases the pipeline and ``upload_files``'s ``streamed`` map of files
-the pipeline already stored. The queue-driven daemon is their only
-caller, and they come with it. ``batch_scope`` (the batched
-small-object path) and ``read_back`` (the canary) come with their
-callers too.
+  file at a time (the reference is strictly serial);
+- files already shipped by the streaming pipeline (store/pipeline.py)
+  during the fetch are recognized and skipped — ``upload_files`` is the
+  store-and-forward fallback half of that pipeline.
 """
 
 from __future__ import annotations
@@ -32,6 +27,7 @@ from __future__ import annotations
 import base64
 import io
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -70,6 +66,7 @@ class Uploader:
         bucket: str,
         client: S3Client,
         upload_workers: int = DEFAULT_UPLOAD_WORKERS,
+        pipeline: "object | None" = None,
     ):
         self._bucket = bucket
         self._client = client
@@ -81,6 +78,11 @@ class Uploader:
         # If the bucket vanishes mid-run, the puts fail with a clear
         # S3Error and the job retries — at-least-once either way.
         self._bucket_ensured = False
+        # the streaming fetch→upload pipeline; built lazily from env
+        # unless injected, so library users and tests that never call
+        # streaming_session() pay nothing for it
+        self._pipeline = pipeline
+        self._pipeline_lock = threading.Lock()
 
     @classmethod
     def from_env(cls, bucket: str) -> "Uploader":
@@ -105,6 +107,61 @@ class Uploader:
         except S3Error as exc:
             # best-effort, like the reference (uploader.go:66-69)
             log.warning(f"failed to create bucket: {exc}")
+
+    # -- streaming pipeline hand-off --------------------------------------
+
+    def configure_pipeline(
+        self, enabled: bool, part_workers: int | None = None
+    ) -> None:
+        """Explicitly (re)build the streaming pipeline instead of the
+        lazy from-env default — how the bench pins its pipelined vs
+        store-and-forward arms regardless of the environment."""
+        from .pipeline import StreamingPipeline
+
+        with self._pipeline_lock:
+            previous = self._pipeline
+            self._pipeline = StreamingPipeline(
+                self._client,
+                self._bucket,
+                enabled=enabled,
+                part_workers=part_workers,
+                prepare=self._ensure_bucket,
+            )
+        if previous is not None:
+            previous.close()
+
+    def streaming_session(self, media_id: str, token: CancelToken | None = None):
+        """A per-job PipelineSession for speculative streamed uploads,
+        or None when the pipeline is disabled (PIPELINE=off). The
+        daemon installs the session as the job's transfer sink and
+        MUST call ``close()`` on it in a finally."""
+        with self._pipeline_lock:
+            if self._pipeline is None:
+                from .pipeline import StreamingPipeline
+
+                self._pipeline = StreamingPipeline(
+                    self._client, self._bucket, prepare=self._ensure_bucket
+                )
+            pipeline = self._pipeline
+        return pipeline.session(media_id, token)
+
+    def batch_scope(self):
+        """One store connection for every upload the calling thread
+        issues inside the scope (S3Client.connection_scope): the
+        batched small-object fast path wraps a whole batch so N
+        single-PUT uploads pay one handshake. Single-file jobs upload
+        on the calling thread (see upload_files), so the scope covers
+        exactly the batch's PUTs."""
+        return self._client.connection_scope()
+
+    def close(self) -> None:
+        """Release the streaming pipeline's part pool (daemon shutdown)."""
+        with self._pipeline_lock:
+            pipeline, created = self._pipeline, self._pipeline is not None
+        if created:
+            close = getattr(pipeline, "close", None)
+            if close is not None:
+                close()
 
     # -- store-and-forward batch upload -----------------------------------
 
@@ -136,19 +193,33 @@ class Uploader:
         log.info("finished upload")
         return size
 
+    def read_back(self, key: str) -> bytes:
+        """Outside-in fetch of a stored object's bytes — the canary
+        verifier's integrity lane (utils/canary.py). Deliberately NOT
+        routed through any cache or pipeline state: it must see
+        exactly what the store would serve a downstream consumer."""
+        return self._client.get_object(self._bucket, key)
+
     def upload_files(
         self,
         token: CancelToken,
         media_id: str,
         files: list[str],
+        streamed: dict[str, str] | None = None,
     ) -> UploadResult:
-        """Upload the batch."""
-        pending = list(files)
+        """Upload the batch; ``streamed`` maps paths the pipeline
+        already landed in the store to their keys — they are recorded
+        as uploaded without a second pass over the bytes."""
+        streamed = streamed or {}
+        pending = [path for path in files if path not in streamed]
         if pending:
             # nothing to upload → no bucket round trip; empty batches
             # (media-less jobs) return immediately
             self._ensure_bucket()
         result = UploadResult()
+        for path, key in streamed.items():
+            if path in files:
+                result.uploaded.append((path, key))
 
         # slot results by index so the outcome ordering is deterministic
         # regardless of which worker finishes first

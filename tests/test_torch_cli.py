@@ -8,6 +8,9 @@ bucket contents, the same counter moves and, with ``--trace-out``, the
 same span names and nesting. Times are not compared. Each package keeps
 its own process-wide tracer and metrics registry: its tracer is cleared
 before its run and its counters are read as deltas across the run.
+``serve`` is compared by the arguments each package's CLI hands its
+daemon (both ``serve()``s replaced by recorders), and by the port's
+exit 2 where the reference would start its fleet.
 """
 
 import base64
@@ -166,12 +169,66 @@ def test_download_once_matches_reference(monkeypatch, capsys, tmp_path, origin, 
     assert port["dangling"] == []
 
 
-def test_serve_exits_2_without_the_daemon(monkeypatch):
-    # the port has no queue-driven daemon yet; hiding the reference's
-    # takes it down the same ImportError branch
-    monkeypatch.setitem(sys.modules, "downloader_tpu.daemon.app", None)
-    monkeypatch.delenv("FLEET_WORKERS", raising=False)
-    assert cli.main(["serve"]) == ref_cli.main(["serve"]) == 2
+SERVE_CASES = {
+    # (argv, env): the flags win over the env; the env wins over the
+    # argparse defaults
+    "env": (["serve"], {"DOWNLOAD_DIR": "dl", "BUCKET": "b-env", "JOB_CONCURRENCY": "3"}),
+    "flags": (["serve", "--base-dir", "x", "--bucket", "b", "--concurrency", "2"],
+              {"DOWNLOAD_DIR": "dl", "BUCKET": "b-env", "JOB_CONCURRENCY": "3"}),
+    "workers-1": (["serve", "--workers", "1"], {}),
+    "workers-2": (["serve", "--workers", "2"], {}),
+    "fleet-env": (["serve"], {"FLEET_WORKERS": "2"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_serve_matches_reference(monkeypatch, tmp_path, case):
+    """``serve`` with one process calls each package's ``serve()`` with the
+    same base dir, bucket and concurrency; with ``--workers N`` > 1 the
+    reference runs its fleet and the port, which has none, exits 2 and
+    starts nothing."""
+    import downloader_tpu.daemon.app as ref_app
+    import downloader_tpu.daemon.fleet as ref_fleet
+    import downloader_tpu_torch.daemon.app as port_app
+
+    argv, env = SERVE_CASES[case]
+    monkeypatch.chdir(tmp_path)
+    for name in ("DOWNLOAD_DIR", "BUCKET", "JOB_CONCURRENCY", "FLEET_WORKERS"):
+        # set first so that monkeypatch restores them: the reference's
+        # fleet branch writes them into os.environ itself
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    calls = {"port": [], "ref": []}
+
+    def recorder(name):
+        def call(**kwargs):
+            calls[name].append(kwargs)
+            return 0
+        return call
+
+    monkeypatch.setattr(port_app, "serve", recorder("port"))
+    monkeypatch.setattr(ref_app, "serve", recorder("ref"))
+    monkeypatch.setattr(ref_fleet, "run_fleet", recorder("ref"))
+    port_code = cli.main(argv)
+    ref_code = ref_cli.main(argv)
+    fleet = case in ("workers-2", "fleet-env")
+    if fleet:
+        assert port_code == 2 and calls["port"] == []
+        assert ref_code == 0 and calls["ref"] == [{"workers": 2}]
+        return
+    assert port_code == ref_code == 0
+    assert calls["port"] == calls["ref"]
+    (kwargs,) = calls["port"]
+    if case == "flags":
+        assert kwargs == {"base_dir": str(tmp_path / "x"), "bucket": "b", "concurrency": 2}
+    elif case == "env":
+        assert kwargs == {"base_dir": str(tmp_path / "dl"), "bucket": "b-env",
+                          "concurrency": 3}
+    else:
+        assert kwargs == {"base_dir": str(tmp_path / "downloading"),
+                          "bucket": "triton-staging", "concurrency": 1}
 
 
 @pytest.fixture
@@ -182,11 +239,9 @@ def hashlib_engines(monkeypatch):
     monkeypatch.setattr(ref_engine, "_default", ref_engine.DigestEngine(backend="hashlib"))
 
 
-def test_magnet_url_exits_1_until_the_torrent_engine(monkeypatch, capsys, tmp_path,
-                                                     hashlib_engines):
-    """A magnet job: it exited 1 while the port had no torrent engine;
-    now both main()s fetch it from a loopback seeder (the magnet carries
-    the tracker), exit 0 and store the same objects."""
+def test_magnet_url_matches_reference(monkeypatch, capsys, tmp_path, hashlib_engines):
+    """A magnet job: both main()s fetch it from a loopback seeder (the
+    magnet carries the tracker), exit 0 and store the same objects."""
     with Seeder(NAME, MOVIE, piece_length=16 * 1024) as seeder:
         args = ["download-once", "--id", "episode-1", "--url", seeder.magnet_uri]
         port, ref = (_run(monkeypatch, capsys, tmp_path, package, args)

@@ -166,3 +166,45 @@ def test_calibration_chain_of_one_lane(card):
     engine = DigestEngine(backend="auto", device=card)
     hashlib_bps, transfer_bps, sync_s, block_s = engine._calibrate()
     assert hashlib_bps > 0 and transfer_bps > 0 and sync_s > 0 and block_s > 0
+
+
+def test_verify_pieces_from_four_threads(card):
+    """Four threads call one engine's verify_pieces at once, as two or
+    more torrent jobs of the daemon flush into the shared default engine:
+    every thread gets hashlib's verdicts for its own pieces, and the one
+    corrupted piece (thread 2's, piece 5) is refused in that thread only."""
+    import threading
+
+    engine = DigestEngine(backend="cuda", device=card)
+    rng = np.random.default_rng(7)
+    batches = [[rng.bytes(256 * 1024) for _ in range(32)] for _ in range(4)]
+    digests = [[hashlib.sha1(p).digest() for p in batch] for batch in batches]
+    corrupt = bytearray(batches[2][5])
+    corrupt[1000] ^= 0x40
+    batches[2][5] = bytes(corrupt)
+    rounds = 12
+    start = threading.Barrier(4)
+    results: list = [None] * 4
+    errors: list = []
+
+    def run(index):
+        try:
+            start.wait(30)
+            results[index] = [
+                engine.verify_pieces(batches[index], digests[index]) for _ in range(rounds)
+            ]
+        except Exception as exc:  # reported below with its thread
+            errors.append((index, repr(exc)))
+
+    before = sha1_cuda.launches
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(120)
+    assert not errors, errors
+    for index, verdicts in enumerate(results):
+        want = [not (index == 2 and piece == 5) for piece in range(32)]
+        assert verdicts == [want] * rounds, index
+    assert sha1_cuda.launches == before + 4 * rounds
+    assert engine.device_batches == 4 * rounds
