@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job and the queue-driven daemon on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon and its crash-only fleet on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -24,7 +24,12 @@ process against the port's AMQP and S3 stubs: two magnet jobs (the
 episode and a 256 MiB torrent) whose flushes share the card, then a
 burst of 48 small HTTP jobs on the batched lane; it checks every
 Convert and stored object, counts the worker's kernel launches and ends
-the worker with SIGTERM. The last line is
+the worker with SIGTERM. The ``fleet`` phase runs ``serve --workers 2``
+with the content cache on (``CACHE_DIR``) on the same stream, every clip
+published twice, and SIGKILLs the worker that holds the second torrent
+partway through its fetch: the job is redelivered and the worker
+restarted; both worker processes launch the kernel on the one card, and
+their launches are counted per worker life. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -78,6 +83,9 @@ PAYLOAD_BYTES = 1 << 30  # one TV-episode-sized media file
 PIECE_LENGTH = 1 << 20
 RESUME_BATCH_BYTES = 64 * 1024 * 1024  # PieceStore.resume_existing's default
 LIVE_BATCH_PIECES = 8  # _PieceBatch's default 8 MiB flush at 1 MiB pieces
+# the make_torrent batch's depth for the plain version: 64 KiB of each
+# 1 MiB piece, B=1025 blocks instead of 16385
+PLAIN_PIECE_BYTES = 64 * 1024
 REPS = 5
 JOB_RUNS = 3
 JOB_NAME = "Show.S01E01.mkv"
@@ -101,6 +109,18 @@ DAEMON_CLIPS = 48
 DAEMON_CLIP_BYTES = (1 << 20, 4 << 20)  # at most BATCH_MAX_BYTES: the batched lane
 DAEMON_SECOND_NAME = "Show.S01E02.mkv"
 DAEMON_WAIT_S = 600  # both torrent jobs; about a minute expected
+# the fleet phase: the daemon cell's stream through ``serve --workers 2``
+# with the data plane on; the worker holding the second torrent is
+# SIGKILLed once this share of its pieces was served
+FLEET_WORKERS = 2
+FLEET_KILL_SHARE = 1 / 3
+# the launches PERF.md predicts for the fleet phase's jobs: the episode
+# in one life, every 8 MiB flush on the card; the second torrent's live
+# flushes over its two lives and the redelivered life's resume batches
+# (64 MiB each) as ranges, since the kill lands between flushes
+FLEET_EPISODE_LIVE = PAYLOAD_BYTES // (8 << 20)
+FLEET_SECOND_LIVE = (DAEMON_SECOND_BYTES // (8 << 20), DAEMON_SECOND_BYTES // (8 << 20) + 4)
+FLEET_SECOND_RESUME = (1, DAEMON_SECOND_BYTES // RESUME_BATCH_BYTES)
 # what a child job or worker takes from this process's environment: the
 # host's own variables and no knob of the port, so every knob a phase
 # does not set stays at its default
@@ -600,20 +620,34 @@ def phase_times(payload: bytes, main: dict, cost: dict) -> dict:
     host_states = torch.empty(states.shape, dtype=states.dtype, pin_memory=True)
     d2h_ms, _ = cuda_ms(lambda: host_states.copy_(states, non_blocking=True))
 
-    # the kernel against its plain version at the make_torrent shape, on
-    # the same tensors; the plain version takes minutes here, so it runs
-    # (and is timed) once
+    # at full depth the kernel's states are the piece table, which the
+    # main path held against hashlib
+    table = b"".join(digests_to_bytes(states.cpu().numpy(), len(pieces)))
+    assert table == main["info"][b"pieces"], "kernel states != piece table"
+    # the kernel against its plain version on the same tensors, at the
+    # make_torrent batch's lanes cut to PLAIN_PIECE_BYTES: the plain
+    # version takes about five minutes at the full depth (B=16385), so it
+    # runs, and is timed, once at this depth
+    cut = [piece[:PLAIN_PIECE_BYTES] for piece in pieces]
+    cut_raw, cut_counts = pack_bytes(cut)
+    cut_blocks = to_gpu_layout(torch.from_numpy(cut_raw).to(device))
+    cut_nblocks = torch.from_numpy(cut_counts).to(device)
+    cut_states = sha1_cuda.sha1_batch_cuda(cut_blocks, cut_nblocks)
+    assert digests_to_bytes(cut_states.cpu().numpy(), len(cut)) == [
+        hashlib.sha1(piece).digest() for piece in cut
+    ], "cut shape: kernel digests != hashlib"
+    cut_kernel_ms, cut_kernel_runs = cuda_ms(
+        lambda: sha1_cuda.sha1_batch_cuda(cut_blocks, cut_nblocks)
+    )
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    plain = sha1.sha1_states(blocks, nblocks)
+    plain = sha1.sha1_states(cut_blocks, cut_nblocks)
     end.record()
     end.synchronize()
-    plain_main_ms = start.elapsed_time(end)
-    err_main = int(np.abs(as_uint32(states) - as_uint32(plain)).max())
-    assert err_main == 0, f"main shape: kernel differs from plain by {err_main}"
-    table = b"".join(digests_to_bytes(states.cpu().numpy(), len(pieces)))
-    assert table == main["info"][b"pieces"], "kernel states != piece table"
+    plain_cut_ms = start.elapsed_time(end)
+    err_cut = int(np.abs(as_uint32(cut_states) - as_uint32(plain)).max())
+    assert err_cut == 0, f"cut shape: kernel differs from plain by {err_cut}"
     hashlib_ms, hashlib_runs = host_ms(
         lambda: [hashlib.sha1(p).digest() for p in pieces]
     )
@@ -675,8 +709,11 @@ def phase_times(payload: bytes, main: dict, cost: dict) -> dict:
         h2d_GBps=pinned.numel() / h2d_ms / 1e6,
         layout_ms=layout_ms,
         d2h_states_ms=d2h_ms,
-        plain_main_shape_ms=plain_main_ms,
-        max_abs_err_main_shape=err_main,
+        plain_shape={"P": len(cut), "B": cut_blocks.shape[0]},
+        plain_cut_shape_ms=plain_cut_ms,
+        kernel_cut_shape_ms=cut_kernel_ms,
+        kernel_cut_shape_runs_ms=cut_kernel_runs,
+        max_abs_err_cut_shape=err_cut,
         hashlib_ms=hashlib_ms,
         hashlib_runs_ms=hashlib_runs,
         read_pieces_ms=read_ms,
@@ -692,11 +729,7 @@ def phase_times(payload: bytes, main: dict, cost: dict) -> dict:
         },
         backend_name_auto=auto.backend_name,
     )
-    return {
-        **shapes[f"P{len(pieces)}_B{blocks.shape[0]}"],
-        "plain_ms": plain_main_ms,
-        "max_abs_err": err_main,
-    }
+    return {"max_abs_err": err_cut}
 
 
 def phase_profile(main: dict) -> None:
@@ -953,7 +986,18 @@ def phase_torrent_shapes(payload: bytes, cost: dict) -> dict:
     return {"max_abs_err": worst, "shapes": shapes}
 
 
-def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
+def process_start_epoch() -> float:
+    """When this process started, in epoch seconds (from /proc, to the
+    kernel's clock tick)."""
+    with open("/proc/self/stat") as source:
+        fields = source.read().rsplit(")", 1)[1].split()
+    with open("/proc/stat") as source:
+        boot = next(int(line.split()[1]) for line in source if line.startswith("btime "))
+    return boot + int(fields[19]) / os.sysconf("SC_CLK_TCK")
+
+
+def counted_job(report_path: str, argv: list[str], rehearse: bool,
+                launch_log: str | None = None) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
     ``report_path`` once ``cli.main`` returns: for ``download-once`` when
@@ -964,7 +1008,14 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
     and the device time by kernel under a CUDA-only profiler. The
     tracer's span cap is raised so that every piece span is kept.
     ``rehearse`` puts a hashlib engine in place of the card (a CPU
-    rehearsal)."""
+    rehearsal).
+
+    With ``launch_log`` (a fleet worker's life, which SIGKILL may end
+    before any report is written) every launch is also appended to that
+    file as it happens, one JSON line with its step, its job (the media
+    id of the torrent whose pieces it verifies), its epoch start and end
+    and its device ms by CUDA events, and so is every batch the engine
+    sends to hashlib; the CUDA profiler is not started."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -979,6 +1030,8 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
         engine_module._default = DigestEngine(backend="hashlib")
     counts = {"live": 0, "resume": 0, "calibration": 0, "resume_device_batches": 0,
               "resumed": [], "verify_window": [float("inf"), float("-inf")]}
+    # line-buffered: each line reaches the file as it is written
+    log_sink = open(launch_log, "a", buffering=1) if launch_log else None
     # host seconds and calls of the layers under the swarm: the resume,
     # a live flush (verify + store write), the engine's verify in both
     layers = {"resume_existing": [0, 0.0], "piece_batch_flush": [0, 0.0],
@@ -1025,10 +1078,33 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
             return "calibration"
         return "resume" if getattr(local, "resuming", False) else "live"
 
+    def log_line(**fields) -> None:
+        if log_sink is not None:
+            with layers_lock:
+                log_sink.write(json.dumps(fields) + "\n")
+
+    def job_of(store: PieceStore) -> str:
+        # a job's files live under <base dir>/<media id>/
+        return os.path.basename(os.path.dirname(store.files[0][0])) if store.files else ""
+
     def counted_launch(blocks, nblocks):
-        states = launch(blocks, nblocks)
+        if log_sink is None or not blocks.is_cuda:
+            states = launch(blocks, nblocks)
+            t0 = t1 = kernel_ms = None
+        else:
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.time()
+            begin.record()
+            states = launch(blocks, nblocks)
+            end.record()
+            # the engine reads the states right after this call anyway
+            end.synchronize()
+            t1 = time.time()
+            kernel_ms = begin.elapsed_time(end)
         with layers_lock:
             counts[step()] += 1
+        log_line(step=step(), job=getattr(local, "job", ""), t0=t0, t1=t1, kernel_ms=kernel_ms)
         return states
 
     def counted_use_device(self, pieces):
@@ -1036,10 +1112,19 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
         if use and step() == "resume":
             with layers_lock:
                 counts["resume_device_batches"] += 1
+        if not use:
+            log_line(host_batch=len(pieces), job=getattr(local, "job", ""), t=time.time())
         return use
+
+    flush = _PieceBatch.flush
+
+    def tagged_flush(self, *args, **kwargs):
+        local.job = job_of(self._swarm.store)
+        return flush(self, *args, **kwargs)
 
     def counted_resume(self, engine=None, *args, **kwargs):
         engine = engine or engine_module.default_engine()
+        local.job = job_of(self)
         local.resuming = True
         try:
             resumed = resume_existing(self, engine, *args, **kwargs)
@@ -1067,13 +1152,16 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
                 counts["verify_window"][1] = max(counts["verify_window"][1], time.time())
 
     PieceStore.resume_existing = counted_resume
+    _PieceBatch.flush = tagged_flush
     DigestEngine._measure_calibration = counted_calibration
     DigestEngine._use_device = counted_use_device
     DigestEngine.verify_pieces = stamped_verify
     # sha1_states looks the wrapper up in its module at each call
     sha1_cuda.sha1_batch_cuda = counted_launch
     sha1_cuda.launches = 0
-    profiler = nullcontext() if rehearse else profile(activities=[ProfilerActivity.CUDA])
+    log_line(life_start=time.time(), pid=os.getpid(), process_started=process_start_epoch())
+    profiled = not rehearse and log_sink is None
+    profiler = profile(activities=[ProfilerActivity.CUDA]) if profiled else nullcontext()
     stamps = {"started": time.time()}
     with profiler:
         stamps["job_start"] = time.time()
@@ -1085,7 +1173,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
         stamps["job_end"] = time.time()
     stamps["profiler_stopped"] = time.time()
     device = {}
-    if not rehearse:
+    if profiled:
         for event in profiler.key_averages():
             if event.device_type == DeviceType.CUDA:
                 device[event.key] = {
@@ -1120,6 +1208,8 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool) -> int:
     }
     with open(report_path, "w") as sink:
         json.dump(report, sink)
+    if log_sink is not None:
+        log_sink.close()
     return code
 
 
@@ -1626,6 +1716,439 @@ def phase_daemon(payload: bytes, second: bytes, clips: dict, workdir: str, card:
     return fields
 
 
+class _CountingOriginHandler(_OriginHandler):
+    """The clip origin of the fleet phase: counts each path's GETs."""
+
+    gets: Counter = Counter()
+    lock = threading.Lock()
+
+    def do_GET(self) -> None:
+        with self.lock:
+            self.gets[os.path.basename(self.path)] += 1
+        super().do_GET()
+
+
+def fleet_supervisor(life_dir: str, argv: list[str], rehearse: bool) -> int:
+    """The fleet phase's supervisor: ``cli.main(argv)`` (``serve
+    --workers N``) in this process, with each worker life started as
+    ``chip_smoke.py --counted-job`` through the supervisor's worker
+    command, so that every life logs its kernel launches to
+    ``life_dir/<instance>.<life>.log`` as they happen. The port counts
+    launches only in the worker's memory, which SIGKILL takes with it,
+    so the entry point alone cannot report a killed life's launches."""
+    from downloader_tpu_torch import cli
+    from downloader_tpu_torch.daemon import fleet
+
+    lives: Counter = Counter()
+
+    def worker_argv(slot) -> list[str]:
+        lives[slot.instance] += 1
+        life = os.path.join(life_dir, f"{slot.instance}.{lives[slot.instance]}")
+        return [
+            sys.executable, os.path.abspath(__file__), "--counted-job", life + ".json",
+            "--launch-log", life + ".log", *(["--rehearse"] if rehearse else []),
+            "--", "serve",
+        ]
+
+    fleet.FleetSupervisor._default_argv = staticmethod(worker_argv)
+    return cli.main(argv)
+
+
+def _get_json(url: str):
+    status, body = _get(url)
+    return json.loads(body) if status == 200 else None
+
+
+def _fleet_lives(life_dir: str) -> dict:
+    """Each worker life's launch log (and report, when the life ended
+    by SIGTERM): launches by step and by job, device ms, host batches."""
+    lives = {}
+    for name in sorted(os.listdir(life_dir)):
+        if not name.endswith(".log"):
+            continue
+        life = name[: -len(".log")]
+        entry = {"instance": life.rsplit(".", 1)[0], "launches": Counter(), "by_job": {},
+                 "kernel_ms": 0.0, "host_batches": 0, "intervals": []}
+        with open(os.path.join(life_dir, name)) as source:
+            for line in source:
+                row = json.loads(line)
+                if "life_start" in row:
+                    entry.update(pid=row["pid"], process_started=row["process_started"],
+                                 wrapper_ready_s=row["life_start"] - row["process_started"])
+                elif "host_batch" in row:
+                    entry["host_batches"] += 1
+                else:
+                    entry["launches"][row["step"]] += 1
+                    job = entry["by_job"].setdefault(row["job"], Counter())
+                    job[row["step"]] += 1
+                    if row["kernel_ms"] is not None:
+                        entry["kernel_ms"] += row["kernel_ms"]
+                        entry["intervals"].append((row["t0"], row["t1"], row["kernel_ms"]))
+        report_path = os.path.join(life_dir, life + ".json")
+        entry["report"] = None
+        if os.path.exists(report_path):
+            with open(report_path) as source:
+                entry["report"] = json.load(source)
+        lives[life] = entry
+    return lives
+
+
+def _overlapping_launches(lives: dict) -> int:
+    """Launches whose wall interval overlaps a launch of another life:
+    two processes on the card at once."""
+    spans = [(t0, t1, life) for life, entry in lives.items() for t0, t1, _ in entry["intervals"]]
+    spans.sort()
+    overlapping = set()
+    for i, (t0, t1, life) in enumerate(spans):
+        for u0, u1, other in spans[i + 1:]:
+            if u0 >= t1:
+                break
+            if other != life:
+                overlapping.update({(t0, t1, life), (u0, u1, other)})
+    return len(overlapping)
+
+
+def _interleaved_launches(lives: dict) -> int:
+    """Launches that start between the first and the last launch of a
+    life of another process: two processes launching on the card in the
+    same stretch of time, their kernels time-sliced."""
+    spans = {life: (min(t0 for t0, _, _ in entry["intervals"]),
+                    max(t1 for _, t1, _ in entry["intervals"]))
+             for life, entry in lives.items() if entry["intervals"]}
+    return sum(
+        1 for life, entry in lives.items() for t0, _, _ in entry["intervals"]
+        if any(other != life and lo <= t0 <= hi for other, (lo, hi) in spans.items())
+    )
+
+
+def phase_fleet(payload: bytes, second: bytes, clips: dict, workdir: str, card: str,
+                rehearse: bool = False) -> dict:
+    """``python3 -m downloader_tpu_torch serve --workers 2`` (through
+    ``fleet_supervisor``) with ``CACHE_DIR`` set and every other knob at
+    its default, fed over AMQP by this process, which runs the port's
+    ``AmqpServerStub``, an ``S3Stub``, two ``Seeder``s (the episode and
+    ``second``, 256 KiB pieces) and an origin for the ``clips`` that
+    counts its GETs. The stream: the episode's magnet; once it fetches,
+    every clip twice by URL (the second copy is served by the data
+    plane: a cache hit or a coalesced follower); then the second
+    torrent's magnet. Once a third of the second torrent's pieces were
+    served, the worker holding it is SIGKILLed: the broker redelivers
+    the job, the supervisor restarts the worker. Every Convert must name
+    its job's media id, every stored object must equal its payload by
+    SHA-256, no multipart upload may stay open, the supervisor must
+    count a restart, and SIGTERM must drain the fleet with exit 0. The
+    workers' kernel launches are counted per life, by step and job,
+    from their launch logs, and no batch may go to hashlib.
+    ``rehearse`` runs it on a host without a card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+    from downloader_tpu_torch.queue.amqp import AmqpConnection
+    from downloader_tpu_torch.queue.amqp_server import AmqpServerStub
+    from downloader_tpu_torch.wire import Convert, Download, Media
+
+    phase_start = time.perf_counter()
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    else:
+        # the seeders' engine calibrates before the count starts
+        engine_module.default_engine()._calibrate()
+        torch.cuda.synchronize()
+    episodes = {"episode-1": (JOB_NAME, payload), "episode-2": (DAEMON_SECOND_NAME, second)}
+    clip_dir = os.path.join(workdir, "fleet-clips")
+    os.makedirs(clip_dir)
+    for name, data in clips.items():
+        with open(os.path.join(clip_dir, name), "wb") as sink:
+            sink.write(data)
+    want = {  # object key -> SHA-256 of its payload
+        f"{media_id}/original/{base64.b64encode(name.encode()).decode()}":
+            hashlib.sha256(data).hexdigest()
+        for media_id, (name, data) in episodes.items()
+    }
+    clip_ids = {}  # media id -> clip name: every clip twice
+    for copy in ("a", "b"):
+        for index, name in enumerate(sorted(clips)):
+            clip_ids[f"clip-{index:02d}{copy}"] = name
+    for media_id, name in clip_ids.items():
+        key = f"{media_id}/original/{base64.b64encode(name.encode()).decode()}"
+        want[key] = hashlib.sha256(clips[name]).hexdigest()
+
+    sha1_cuda.launches = 0
+    # the rehearsal's loopback swarm would finish the second torrent
+    # before the kill: its seeder waits a little per block there
+    seeders = {
+        media_id: Seeder(name, data, piece_length=TORRENT_PIECE,
+                         serve_delay=0.002 if rehearse and media_id == "episode-2" else 0.0)
+        for media_id, (name, data) in episodes.items()
+    }
+    seed_launches = sha1_cuda.launches
+    handler = type("FleetClips", (_CountingOriginHandler,),
+                   {"root": clip_dir, "gets": Counter(), "lock": threading.Lock()})
+    origin = _OriginServer(("127.0.0.1", 0), handler)
+    serving = threading.Thread(target=origin.serve_forever, daemon=True)
+    serving.start()
+    origin_url = f"http://127.0.0.1:{origin.server_address[1]}"
+    fleet_port = _free_port()
+    base_dir = os.path.join(workdir, "fleet")
+    life_dir = os.path.join(workdir, "fleet-lives")
+    os.makedirs(base_dir)
+    os.makedirs(life_dir)
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    arrived: dict = {}  # media id -> perf_counter when its Convert arrived
+    converts: Counter = Counter()  # media id -> Converts published
+    published: dict = {}
+    supervisor = None
+    fleet = f"http://127.0.0.1:{fleet_port}"
+    with AmqpServerStub(username="smoke", password="smoke-pw") as amqp, \
+            S3Stub(credentials=credentials) as stub:
+        try:
+            for seeder in seeders.values():
+                seeder.start()
+            env = child_env(
+                BROKER="amqp", RABBITMQ_ENDPOINT=amqp.endpoint,
+                RABBITMQ_USERNAME="smoke", RABBITMQ_PASSWORD="smoke-pw",
+                S3_ENDPOINT=f"http://{stub.endpoint}", S3_ACCESS_KEY="smoke-ak",
+                S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off",
+                HEALTH_PORT=str(fleet_port), CACHE_DIR=os.path.join(workdir, "fleet-cache"),
+            )
+            sink = amqp.broker.connect().channel()
+            sink.declare_exchange("v1.convert")
+
+            def on_convert(message) -> None:
+                media_id = Convert.unmarshal(message.body).media.id
+                arrived.setdefault(media_id, time.perf_counter())
+                converts[media_id] += 1
+                sink.ack(message.delivery_tag)
+
+            for shard in (0, 1):
+                sink.declare_queue(f"v1.convert-{shard}")
+                sink.bind_queue(f"v1.convert-{shard}", "v1.convert", f"v1.convert-{shard}")
+                sink.consume(f"v1.convert-{shard}", on_convert)
+
+            command = [
+                sys.executable, os.path.abspath(__file__), "--fleet-supervisor", life_dir,
+                *(["--rehearse"] if rehearse else []), "--",
+                "serve", "--workers", str(FLEET_WORKERS), "--base-dir", base_dir,
+            ]
+            with open(os.path.join(workdir, "fleet.err"), "wb") as errors:
+                supervisor = subprocess.Popen(command, env=env, cwd=base_dir,
+                                              stdout=subprocess.DEVNULL, stderr=errors)
+            deadline = time.monotonic() + 180
+            while _get(fleet + "/readyz")[0] != 200:
+                assert supervisor.poll() is None, f"supervisor exited {supervisor.returncode}"
+                assert time.monotonic() < deadline, "the fleet never became ready"
+                time.sleep(0.2)
+            ready_s = time.perf_counter() - phase_start
+
+            producer = AmqpConnection.dial(amqp.endpoint, username="smoke", password="smoke-pw")
+            channel = producer.channel()
+            sent = 0
+
+            def publish(media_id: str, url: str) -> None:
+                nonlocal sent
+                body = Download(media=Media(id=media_id, source_uri=url)).marshal()
+                published[media_id] = time.perf_counter()
+                channel.publish("v1.download", f"v1.download-{sent % 2}", body)
+                sent += 1
+
+            def wait(ids, limit_s: float) -> None:
+                deadline = time.monotonic() + limit_s
+                while not all(media_id in arrived for media_id in ids):
+                    assert supervisor.poll() is None, f"supervisor exited {supervisor.returncode}"
+                    assert time.monotonic() < deadline, (
+                        f"no Convert for {sorted(set(ids) - set(arrived))}")
+                    time.sleep(0.05)
+
+            def slots() -> list:
+                snap = _get_json(fleet + "/healthz")
+                return snap["slots"] if snap else []
+
+            torrent_start = time.perf_counter()
+            torrent_start_epoch = time.time()
+            publish("episode-1", seeders["episode-1"].magnet_uri)
+            deadline = time.monotonic() + 120
+            while not seeders["episode-1"].served_requests:
+                assert time.monotonic() < deadline, "the episode never fetched"
+                time.sleep(0.01)
+            burst_start = time.perf_counter()
+            for media_id, name in clip_ids.items():
+                publish(media_id, f"{origin_url}/{name}")
+            publish("episode-2", seeders["episode-2"].magnet_uri)
+
+            # the worker holding the second torrent, once a third of its
+            # pieces were served
+            second_pieces = len(second) // TORRENT_PIECE
+            deadline = time.monotonic() + 300
+            victim = None
+            while victim is None or len(set(seeders["episode-2"].served_requests)) < (
+                    second_pieces * FLEET_KILL_SHARE):
+                assert "episode-2" not in arrived, "the second torrent finished before the kill"
+                assert time.monotonic() < deadline, "the second torrent never got going"
+                if victim is None:
+                    for slot in slots():
+                        jobs = _get_json(f"http://127.0.0.1:{slot['health_port']}/debug/jobs")
+                        held = {t.get("job_id") for t in (jobs or {}).get("in_flight", [])}
+                        if "episode-2" in held:
+                            victim = slot
+                time.sleep(0.01)
+            served_at_kill = len(set(seeders["episode-2"].served_requests))
+            killed = time.perf_counter()
+            os.kill(victim["pid"], signal.SIGKILL)
+
+            def restarted() -> dict | None:
+                for slot in slots():
+                    if slot["instance"] == victim["instance"] and slot["pid"] not in (
+                            None, victim["pid"]) and slot["ready"]:
+                        return slot
+                return None
+
+            deadline = time.monotonic() + 180
+            while (heir := restarted()) is None:
+                assert time.monotonic() < deadline, "the killed worker never came back"
+                time.sleep(0.1)
+            restart_heartbeat_s = time.perf_counter() - killed
+            while _get(f"http://127.0.0.1:{heir['health_port']}/readyz")[0] != 200:
+                assert time.monotonic() < deadline, "the restarted worker never got ready"
+                time.sleep(0.1)
+            restart_ready_s = time.perf_counter() - killed
+
+            wait(episodes, DAEMON_WAIT_S)
+            torrent_s = max(arrived[m] for m in episodes) - torrent_start
+            torrent_end_epoch = torrent_start_epoch + torrent_s
+            wait(clip_ids, 300)
+            burst_s = max(arrived[m] for m in clip_ids) - burst_start
+            producer.close()
+
+            flows = _get_json(fleet + "/debug/flows")
+            cache = _get_json(fleet + "/debug/cache")
+            status, exposition = _get(fleet + "/metrics")
+            assert status == 200, status
+            restarts = sum(
+                float(line.rsplit(" ", 1)[1]) for line in exposition.splitlines()
+                if line.startswith("downloader_fleet_worker_restarts ")
+            )
+            sigterm = time.time()
+            supervisor.send_signal(signal.SIGTERM)
+            code = supervisor.wait(timeout=180)
+            exit_s = time.time() - sigterm
+            assert code == 0, f"supervisor exited {code} after SIGTERM"
+            stored = {
+                key: hashlib.sha256(data).hexdigest()
+                for key, data in stub.buckets.get("triton-staging", {}).items()
+                if not key.startswith("canary-")
+            }
+            dangling = stub.list_multipart_uploads()
+        finally:
+            if supervisor is not None and supervisor.poll() is None:
+                supervisor.kill()
+                supervisor.wait(60)
+            for seeder in seeders.values():
+                seeder.stop()
+            origin.shutdown()
+            origin.server_close()
+            serving.join(timeout=60)
+    assert sorted(converts) == sorted(published), sorted(set(published) ^ set(converts))
+    assert sorted(stored) == sorted(want), sorted(set(want) ^ set(stored))
+    for key, digest in want.items():
+        assert stored[key] == digest, f"{key}: stored object != payload"
+    assert dangling == [], dangling
+    assert restarts >= 1, restarts
+
+    lives = _fleet_lives(life_dir)
+    host_batches = sum(entry["host_batches"] for entry in lives.values())
+    by_job = {media_id: Counter() for media_id in episodes}
+    for entry in lives.values():
+        for job, steps in entry["by_job"].items():
+            if job in by_job:
+                by_job[job].update({k: v for k, v in steps.items() if k != "calibration"})
+    expected = {
+        "fleet_seed": len(episodes),
+        "episode-1": {"live": FLEET_EPISODE_LIVE, "resume": 0},
+        "episode-2": {"live": list(FLEET_SECOND_LIVE), "resume": list(FLEET_SECOND_RESUME)},
+        "calibration_per_life_that_launched": 3,
+    }
+    launching = [life for life, entry in lives.items() if sum(entry["launches"].values())]
+    if not rehearse:
+        assert seed_launches == len(episodes), seed_launches
+        assert host_batches == 0, {life: e["host_batches"] for life, e in lives.items()}
+        assert by_job["episode-1"]["live"] == FLEET_EPISODE_LIVE, by_job
+        assert by_job["episode-1"]["resume"] == 0, by_job
+        assert FLEET_SECOND_LIVE[0] <= by_job["episode-2"]["live"] <= FLEET_SECOND_LIVE[1], by_job
+        assert FLEET_SECOND_RESUME[0] <= by_job["episode-2"]["resume"] <= FLEET_SECOND_RESUME[1], (
+            by_job)
+        for life in launching:
+            assert lives[life]["launches"]["calibration"] == 3, (life, lives[life]["launches"])
+        # both slots' processes launched the kernel on the one card
+        assert {lives[life]["instance"] for life in launching} == {
+            f"worker-{i}" for i in range(FLEET_WORKERS)}, launching
+        for life, entry in lives.items():
+            report = entry["report"]
+            if report is not None:
+                assert report["launches"] == sum(entry["launches"].values()), (life, report)
+                assert report["host_batches"] == 0, (life, report)
+    clip_gets = dict(handler.gets)
+    latencies = [arrived[m] - published[m] for m in clip_ids]
+    in_window = sum(
+        ms for entry in lives.values() for t0, t1, ms in entry["intervals"]
+        if torrent_start_epoch <= t0 and t1 <= torrent_end_epoch
+    )
+    fields = dict(
+        clock="host wall clock on the card's machine; device ms by CUDA events around each launch",
+        seconds=time.perf_counter() - phase_start,
+        workers=FLEET_WORKERS,
+        fleet_ready_s=ready_s,
+        torrent_jobs={
+            media_id: {
+                "bytes": len(data), "pieces": len(data) // TORRENT_PIECE,
+                "publish_to_convert_s": arrived[media_id] - published[media_id],
+                "converts": converts[media_id],
+            }
+            for media_id, (_, data) in episodes.items()
+        },
+        torrent_window_s=torrent_s,
+        killed_instance=victim["instance"],
+        second_pieces_served_at_kill=served_at_kill,
+        sigkill_to_restarted_heartbeat_s=restart_heartbeat_s,
+        sigkill_to_restarted_readyz_s=restart_ready_s,
+        fleet_worker_restarts=restarts,
+        kernel_ms_by_life={life: entry["kernel_ms"] for life, entry in lives.items()},
+        kernel_ms_in_torrent_window=in_window,
+        idle_share_of_torrent_window_by_summed_kernel_ms=1 - in_window / (torrent_s * 1e3),
+        launches_overlapping_another_process=_overlapping_launches(lives),
+        launches_interleaved_with_another_process=_interleaved_launches(lives),
+        lives={
+            life: {
+                "instance": entry["instance"], "pid": entry.get("pid"),
+                "ended_by": "SIGTERM" if entry["report"] is not None else "SIGKILL",
+                "process_start_to_wrapper_ready_s": entry.get("wrapper_ready_s"),
+                "launches_by_step": dict(entry["launches"]),
+                "launches_by_job": {job: dict(steps) for job, steps in entry["by_job"].items()},
+                "host_batches": entry["host_batches"],
+            }
+            for life, entry in lives.items()
+        },
+        launches_by_job={job: dict(steps) for job, steps in by_job.items()},
+        expected_launches=expected,
+        small_jobs=len(clip_ids),
+        small_distinct=len(clips),
+        small_origin_gets=sum(clip_gets.values()),
+        small_origin_gets_max_per_clip=max(clip_gets.values()) if clip_gets else 0,
+        small_publish_to_convert_s_p50=_percentile(latencies, 50),
+        small_publish_to_convert_s_p99=_percentile(latencies, 99),
+        small_jobs_per_s=len(clip_ids) / burst_s,
+        flows={k: (flows or {}).get(k) for k in (
+            "workers", "unique_bytes", "ingress_bytes", "cache_hit_bytes",
+            "origin_amplification")},
+        cache_instances=sorted((cache or {}).get("instances", {})),
+        supervisor_sigterm_to_exit_s=exit_s,
+        launches=seed_launches + sum(sum(e["launches"].values()) for e in lives.values()),
+        host_batches=host_batches,
+        object_sha256_equal_payload=True,
+        card=card,
+    )
+    emit("fleet", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1639,11 +2162,18 @@ def nvidia_smi() -> str:
 
 def main() -> int:
     if sys.argv[1:2] == ["--counted-job"]:
-        # the child of the torrent and daemon phases: python3
-        # chip_smoke.py --counted-job REPORT [--rehearse] --
-        # <downloader_tpu_torch arguments>
+        # the child of the torrent, daemon and fleet phases: python3
+        # chip_smoke.py --counted-job REPORT [--launch-log LOG]
+        # [--rehearse] -- <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
-        return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in sys.argv[3:split])
+        options = sys.argv[3:split]
+        launch_log = options[options.index("--launch-log") + 1] if "--launch-log" in options else None
+        return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log)
+    if sys.argv[1:2] == ["--fleet-supervisor"]:
+        # the fleet phase's supervisor: python3 chip_smoke.py
+        # --fleet-supervisor LIFE_DIR [--rehearse] -- serve --workers N ...
+        split = sys.argv.index("--")
+        return fleet_supervisor(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in sys.argv[3:split])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -1695,18 +2225,25 @@ def main() -> int:
             for index in range(DAEMON_CLIPS)
         }
         daemon = phase_daemon(payload, second, clips, workdir, card)
+        fleet = phase_fleet(payload, second, clips, workdir, card)
 
+    # the line's times are at the live flush's shape (P=32, B=4097),
+    # which most launches of the torrent, daemon and fleet paths take
+    # and where the plain version runs at full depth
+    live = torrent_shapes["shapes"][f"P{TORRENT_PLAIN_SHAPE}_B{TORRENT_PIECE // 64 + 1}"]
     kernel = dict(KERNEL)
     kernel.update(
-        launches=main_path["launches"] + torrent["launches"] + daemon["launches"],
+        launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
+                  + fleet["launches"]),
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),
-        ms=main_shape["kernel_ms"],
-        plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"],
-        bound_by=main_shape["bound_by"],
+        ms=live["kernel_ms"],
+        plain_ms=live["plain_ms"],
+        bound_ms=live["bound_ms"],
+        bound_by=live["bound_by"],
         library_ms=None,
+        shape={"P": live["P"], "B": live["B"]},
     )
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(card, flush=True)

@@ -6,8 +6,8 @@ reference's pipeline (cmd/downloader/downloader.go:116-147 without the
 AMQP wrapper), as ``python -m downloader_tpu download-once`` does.
 A job takes a magnet URI, an http(s) URL of a ``.torrent`` file, or a
 plain http(s) URL. ``python -m downloader_tpu_torch serve`` runs the
-queue-driven daemon in one process; the fleet (``--workers N`` with
-N > 1) is not in this build and exits 2.
+queue-driven daemon; ``serve --workers N`` supervises N of them as a
+crash-only fleet of the port's own worker processes.
 
 The reference's single CLI flag is ``-cpuprofile`` writing a pprof CPU
 profile (cmd/downloader/downloader.go:26,32-43); ``--cpuprofile`` here
@@ -89,8 +89,9 @@ def _build_parser() -> argparse.ArgumentParser:
         "--workers",
         type=int,
         default=int(os.environ.get("FLEET_WORKERS", "0")),
-        help="worker processes; 0/1 = single process (default). The "
-        "crash-only fleet (N > 1) is not in this build and exits 2",
+        help="run a crash-only fleet: supervise this many worker "
+        "PROCESSES (each its own serve() against the broker) with "
+        "liveness-watched restarts; 0/1 = single process (default)",
     )
     return parser
 
@@ -276,11 +277,15 @@ def main(argv: list[str] | None = None) -> int:
             return _download_once(args)
         if args.command == "serve":
             if args.workers and args.workers > 1:
-                log.with_fields(workers=args.workers).error(
-                    "the crash-only fleet is not available in this build; "
-                    "run serve without --workers"
-                )
-                return 2
+                from .daemon.fleet import run_fleet
+
+                # worker processes inherit the environment; base-dir /
+                # bucket / concurrency ride through it so every worker
+                # runs the exact single-process serve() contract
+                os.environ["DOWNLOAD_DIR"] = os.path.abspath(args.base_dir)
+                os.environ["BUCKET"] = args.bucket
+                os.environ["JOB_CONCURRENCY"] = str(args.concurrency)
+                return run_fleet(workers=args.workers)
             from .daemon.app import serve
 
             return serve(

@@ -24,6 +24,7 @@ media, cmd:136-139), ack. Differences, all deliberate:
 
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import signal
 import threading
@@ -1272,22 +1273,6 @@ def build_connection_factory(config: Config):
     raise ValueError(f"unknown BROKER '{config.broker}'")
 
 
-def refuse_fleet_config(config: Config) -> None:
-    """Raise if ``config`` asks for the fleet data plane (``CACHE_DIR``)
-    or fleet membership (``FLEET_HEARTBEAT_FILE``): this build has
-    neither, and running without them would silently drop the shared
-    cache and the supervisor's liveness signal."""
-    for knob, value in (
-        ("CACHE_DIR", config.cache_dir),
-        ("FLEET_HEARTBEAT_FILE", config.fleet_heartbeat_file),
-    ):
-        if value:
-            raise ValueError(
-                f"{knob} is set, but the fleet and its data plane are not "
-                "in this build; unset it to run a single process"
-            )
-
-
 def serve(
     base_dir: str | None = None,
     bucket: str | None = None,
@@ -1300,7 +1285,6 @@ def serve(
     cmd:158-170)."""
     configure_from_env()
     config = config or Config.from_env()
-    refuse_fleet_config(config)
     if base_dir:
         config.base_dir = base_dir
     if bucket:
@@ -1427,10 +1411,50 @@ def serve(
         pool_per_host=config.http_pool_per_host,
         pool_idle=config.http_pool_idle,
     ).info("http fetch: segmented ranges + keep-alive pool configured")
-    dispatcher = DispatchClient(token, config.base_dir, backends)
+    # fleet data plane (store/cas.py + fetch/singleflight.py): when a
+    # cache root is configured, both fetch lanes front origin with the
+    # shared content cache + cross-process single-flight election. The
+    # registry pins the lease index under the cache root unless the
+    # supervisor handed down an explicit SINGLEFLIGHT_DIR.
+    data_plane = None
+    if config.cache_dir:
+        from ..fetch.singleflight import (
+            CoalescingDataPlane,
+            LeaseRegistry,
+            activate,
+        )
+        from ..store.cas import ContentStore
+
+        registry = LeaseRegistry(
+            config.singleflight_dir
+            or os.path.join(os.path.abspath(config.cache_dir), "inflight"),
+            lease_ttl_s=config.singleflight_lease_s,
+            instance=config.instance,
+        )
+        content_store = ContentStore(
+            config.cache_dir,
+            max_bytes=config.cache_max_bytes,
+            ttl_s=config.cache_ttl_s,
+            pinned=registry.is_leased,
+        )
+        data_plane = CoalescingDataPlane(
+            content_store, registry, wait_s=config.singleflight_wait_s
+        )
+        activate(data_plane)
+        log.with_fields(
+            cache_dir=config.cache_dir,
+            max_bytes=config.cache_max_bytes,
+            lease_s=config.singleflight_lease_s,
+        ).info("fleet data plane: content cache + single-flight armed")
+    dispatcher = DispatchClient(
+        token, config.base_dir, backends, data_plane=data_plane
+    )
     uploader = Uploader.from_env(config.bucket)
 
     daemon = Daemon(token, client, dispatcher, uploader, config)
+    # when a cache plane is configured, it attached above (or serve()
+    # would have raised); /readyz reports the verdict either way
+    daemon.data_plane_attached = data_plane is not None or not config.cache_dir
 
     # synthetic canary plane (utils/canary.py): the prober mints
     # known-content probe jobs onto this worker's OWN consume topic —
@@ -1458,6 +1482,18 @@ def serve(
         health = HealthServer(
             daemon, client, config.health_port, config.health_host
         ).start()
+    # fleet membership: the supervisor handed down a heartbeat-file
+    # path; the writer thread feeds the parent's liveness verdicts
+    # (wall-clock beat + publisher gauge + watchdog stalled count)
+    heartbeat = None
+    if config.fleet_heartbeat_file:
+        from .fleet import HeartbeatWriter
+
+        heartbeat = HeartbeatWriter(
+            config.fleet_heartbeat_file,
+            config.fleet_heartbeat_s,
+            health_port=health.port if health is not None else 0,
+        ).start()
     if prober is not None:
         prober.start()
     try:
@@ -1468,6 +1504,8 @@ def serve(
         if prober is not None:
             canary.ACTIVE = None
             prober.stop()
+        if heartbeat is not None:
+            heartbeat.stop()
         profiling.PROFILER.stop()
         alerts.ENGINE.stop()
         tsdb.STORE.stop()
@@ -1479,4 +1517,11 @@ def serve(
             backend_close = getattr(backend, "close", None)
             if backend_close is not None:
                 backend_close()
+        if data_plane is not None:
+            from ..fetch.singleflight import activate
+
+            activate(None)
+            # refunds this process's ledger charges; entries stay on
+            # shared disk as idle capacity for the next life
+            data_plane.store.close()
     return 0

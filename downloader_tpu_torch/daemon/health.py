@@ -474,11 +474,14 @@ class HealthServer:
         fetch/singleflight.py): entry counts and bytes, hit/miss/
         eviction counters, and every live lease with its owner and
         heartbeat age. ``{"enabled": false}`` when no CACHE_DIR is
-        configured, which in this build is always: the data plane comes
-        with the fleet, and serve() refuses CACHE_DIR until then."""
+        configured."""
+        from ..fetch import singleflight
+
         return (
             200,
-            (json.dumps({"enabled": False}, indent=1) + "\n").encode(),
+            (
+                json.dumps(singleflight.debug_snapshot(), indent=1) + "\n"
+            ).encode(),
             "application/json",
         )
 

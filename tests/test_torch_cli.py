@@ -184,12 +184,12 @@ SERVE_CASES = {
 @pytest.mark.parametrize("case", sorted(SERVE_CASES))
 def test_serve_matches_reference(monkeypatch, tmp_path, case):
     """``serve`` with one process calls each package's ``serve()`` with the
-    same base dir, bucket and concurrency; with ``--workers N`` > 1 the
-    reference runs its fleet and the port, which has none, exits 2 and
-    starts nothing."""
+    same base dir, bucket and concurrency; with ``--workers N`` > 1 each
+    package runs its own fleet, with the same worker count, and exits 0."""
     import downloader_tpu.daemon.app as ref_app
     import downloader_tpu.daemon.fleet as ref_fleet
     import downloader_tpu_torch.daemon.app as port_app
+    import downloader_tpu_torch.daemon.fleet as port_fleet
 
     argv, env = SERVE_CASES[case]
     monkeypatch.chdir(tmp_path)
@@ -211,12 +211,13 @@ def test_serve_matches_reference(monkeypatch, tmp_path, case):
     monkeypatch.setattr(port_app, "serve", recorder("port"))
     monkeypatch.setattr(ref_app, "serve", recorder("ref"))
     monkeypatch.setattr(ref_fleet, "run_fleet", recorder("ref"))
+    monkeypatch.setattr(port_fleet, "run_fleet", recorder("port"))
     port_code = cli.main(argv)
     ref_code = ref_cli.main(argv)
     fleet = case in ("workers-2", "fleet-env")
     if fleet:
-        assert port_code == 2 and calls["port"] == []
-        assert ref_code == 0 and calls["ref"] == [{"workers": 2}]
+        assert port_code == ref_code == 0
+        assert calls["port"] == calls["ref"] == [{"workers": 2}]
         return
     assert port_code == ref_code == 0
     assert calls["port"] == calls["ref"]

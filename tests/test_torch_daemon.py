@@ -16,7 +16,7 @@ The packages run one after the other, never at once: each has its own
 process-wide singletons (metrics, admission, the watchdog), reset before
 its run. The file also holds ``serve()`` of the port end to end over its
 AMQP stub, ``Config.from_env`` field by field across packages,
-``serve()`` refusing the fleet's knobs, and a fresh interpreter in which
+``serve()`` arming the fleet's knobs, and a fresh interpreter in which
 a port daemon runs an HTTP job without loading the digest engine.
 """
 
@@ -468,15 +468,58 @@ def test_config_from_env_matches_reference(case):
 
 
 @pytest.mark.parametrize("knob", ["CACHE_DIR", "FLEET_HEARTBEAT_FILE"])
-def test_serve_refuses_the_fleet_knobs(knob, tmp_path):
-    """The port has no fleet data plane and no fleet membership yet:
-    serve() raises before it starts anything rather than run without
-    them."""
-    config = PORT.config.Config.from_env({knob: str(tmp_path / "x"), "BROKER": "memory"})
+def test_serve_arms_the_fleet_knobs(knob, tmp_path, monkeypatch):
+    """With ``CACHE_DIR`` set, serve() arms the fleet data plane and
+    ``/debug/cache`` serves its live snapshot; with
+    ``FLEET_HEARTBEAT_FILE`` set, it beats the file with its health
+    port. Either way it stops with every thread it started."""
+    stop_planes(PORT)
+    port = free_port()
+    monkeypatch.setenv("S3_ENDPOINT", "http://127.0.0.1:9")  # no job runs
+    monkeypatch.setenv("DHT_BOOTSTRAP", "off")
+    monkeypatch.setenv("LSD", "off")
+    config = PORT.config.Config.from_env({
+        knob: str(tmp_path / "x"), "BROKER": "memory", "HEALTH_PORT": str(port),
+        "DOWNLOAD_DIR": str(tmp_path / "dl"), "CANARY": "off", "TSDB_INTERVAL": "0",
+        "ALERT_INTERVAL": "0",
+    })
+    config.health_host = "127.0.0.1"
+    token = PORT.cancel.CancelToken()
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match=knob):
-        PORT.app.serve(config=config, install_signal_handlers=False)
-    assert not [t for t in threading.enumerate() if t not in before]
+    served = threading.Thread(
+        target=PORT.app.serve,
+        kwargs=dict(config=config, token=token, install_signal_handlers=False),
+        daemon=True,
+    )
+    served.start()
+    try:
+        if knob == "CACHE_DIR":
+            def snapshot():
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/cache",
+                                                timeout=TIMEOUT) as answer:
+                        return json.loads(answer.read())
+                except OSError:
+                    return None
+
+            assert wait_for(lambda: snapshot() is not None, timeout=30)
+            cache = snapshot()
+            assert cache["enabled"] is True
+            assert cache["cas"]["root"] == os.path.abspath(config.cache_dir)
+            assert cache["singleflight"]["root"] == os.path.join(
+                os.path.abspath(config.cache_dir), "inflight")
+        else:
+            beat_file = tmp_path / "x"
+            assert wait_for(beat_file.exists, timeout=30)
+            beat = json.loads(beat_file.read_text())
+            assert beat["health_port"] == port and beat["pid"] == os.getpid()
+    finally:
+        token.cancel()
+        served.join(timeout=20)
+    assert not served.is_alive()
+    leftover = lambda: [t.name for t in threading.enumerate()
+                        if t not in before and t.is_alive()]
+    assert wait_for(lambda: not leftover(), timeout=10), leftover()
 
 
 def test_torrent_job_without_a_card_fails(monkeypatch, tmp_path):
