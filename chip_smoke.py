@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon and its crash-only fleet on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet and its analyzer's recorders on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -29,7 +29,15 @@ with the content cache on (``CACHE_DIR``) on the same stream, every clip
 published twice, and SIGKILLs the worker that holds the second torrent
 partway through its fetch: the job is redelivered and the worker
 restarted; both worker processes launch the kernel on the one card, and
-their launches are counted per worker life. The last line is
+their launches are counted per worker life. The ``analysis`` phase runs
+the port's static analyzer over its own tree (no violation, ten reasoned
+suppressions), then one 64 MiB torrent job in a child process that
+installs the port's lock-order and protocol recorders before it imports
+the port, has four threads verify pieces on the card at once after the
+job and captures an incident bundle: the recorded lock graph must be
+acyclic and hold the engine's and the kernel wrapper's locks, no
+protocol obligation may leak, and the bundle must carry the lock
+state. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -56,6 +64,26 @@ import time
 import urllib.error
 import urllib.request
 from collections import Counter
+
+
+def _recording_child() -> bool:
+    """Whether this process is the analysis phase's recorded child,
+    ``chip_smoke.py --counted-job REPORT --record ... -- <arguments>``."""
+    argv = sys.argv
+    return (__name__ == "__main__" and argv[1:2] == ["--counted-job"] and "--" in argv
+            and "--record" in argv[3 : argv.index("--")])
+
+
+# The recorded child installs the port's lock-order and protocol
+# recorders before it imports anything else of the port: a lock made
+# before install() is a real lock the recorder never sees, and the
+# kernel wrapper's and the engine module's locks are module globals.
+if _recording_child():
+    from downloader_tpu_torch.analysis.runtime import LockOrderRecorder, ProtocolRecorder
+
+    RECORDERS = (LockOrderRecorder().install(), ProtocolRecorder().install())
+else:
+    RECORDERS = None
 
 import numpy as np
 import torch
@@ -121,6 +149,16 @@ FLEET_KILL_SHARE = 1 / 3
 FLEET_EPISODE_LIVE = PAYLOAD_BYTES // (8 << 20)
 FLEET_SECOND_LIVE = (DAEMON_SECOND_BYTES // (8 << 20), DAEMON_SECOND_BYTES // (8 << 20) + 4)
 FLEET_SECOND_RESUME = (1, DAEMON_SECOND_BYTES // RESUME_BATCH_BYTES)
+# the analysis phase: the port's analyzer over its own tree (no
+# violations, this many reasoned suppressions), then a torrent job of
+# this many bytes (256 KiB pieces: eight live flushes at P=32, B=4097)
+# under the port's recorders, after which this many threads call
+# verify_pieces at once on batches made from the seed
+ANALYSIS_SUPPRESSIONS = 10
+ANALYSIS_BYTES = 64 * 1024 * 1024
+ANALYSIS_THREADS = 4
+ANALYSIS_SEED = 7
+ANALYSIS_TIMEOUT_S = 300  # each analyzer run; about 5 s expected
 # what a child job or worker takes from this process's environment: the
 # host's own variables and no knob of the port, so every knob a phase
 # does not set stays at its default
@@ -997,7 +1035,7 @@ def process_start_epoch() -> float:
 
 
 def counted_job(report_path: str, argv: list[str], rehearse: bool,
-                launch_log: str | None = None) -> int:
+                launch_log: str | None = None, record: bool = False) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
     ``report_path`` once ``cli.main`` returns: for ``download-once`` when
@@ -1015,7 +1053,13 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     file as it happens, one JSON line with its step, its job (the media
     id of the torrent whose pieces it verifies), its epoch start and end
     and its device ms by CUDA events, and so is every batch the engine
-    sends to hashlib; the CUDA profiler is not started."""
+    sends to hashlib; the CUDA profiler is not started.
+
+    With ``record`` (the analysis phase; ``RECORDERS`` were installed
+    before the port was imported) the job runs under the port's
+    lock-order and protocol recorders, without the profiler, and
+    ``recorded_checks`` runs after it; the report gains its result
+    under ``recorded``."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -1028,7 +1072,9 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     tracing.MAX_SPANS_PER_TRACE = 1 << 20
     if rehearse:
         engine_module._default = DigestEngine(backend="hashlib")
-    counts = {"live": 0, "resume": 0, "calibration": 0, "resume_device_batches": 0,
+    if record and RECORDERS is None:
+        raise RuntimeError("--record needs the recorders installed before the port's imports")
+    counts = {"live": 0, "resume": 0, "calibration": 0, "concurrent": 0, "resume_device_batches": 0,
               "resumed": [], "verify_window": [float("inf"), float("-inf")]}
     # line-buffered: each line reaches the file as it is written
     log_sink = open(launch_log, "a", buffering=1) if launch_log else None
@@ -1076,7 +1122,9 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     def step() -> str:
         if getattr(local, "calibrating", False):
             return "calibration"
-        return "resume" if getattr(local, "resuming", False) else "live"
+        if getattr(local, "resuming", False):
+            return "resume"
+        return getattr(local, "step", "live")
 
     def log_line(**fields) -> None:
         if log_sink is not None:
@@ -1160,7 +1208,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     sha1_cuda.sha1_batch_cuda = counted_launch
     sha1_cuda.launches = 0
     log_line(life_start=time.time(), pid=os.getpid(), process_started=process_start_epoch())
-    profiled = not rehearse and log_sink is None
+    profiled = not rehearse and log_sink is None and not record
     profiler = profile(activities=[ProfilerActivity.CUDA]) if profiled else nullcontext()
     stamps = {"started": time.time()}
     with profiler:
@@ -1172,6 +1220,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         wall_s = time.perf_counter() - start
         stamps["job_end"] = time.time()
     stamps["profiler_stopped"] = time.time()
+    recorded = recorded_checks(engine_module.default_engine(), local) if record else None
     device = {}
     if profiled:
         for event in profiler.key_averages():
@@ -1182,7 +1231,8 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
                 }
     engine = engine_module._default
     total = sha1_cuda.launches
-    assert total == counts["live"] + counts["resume"] + counts["calibration"], (total, counts)
+    assert total == sum(counts[step] for step in ("live", "resume", "calibration", "concurrent")), (
+        total, counts)
     first, last = counts["verify_window"]
     report = {
         "code": code,
@@ -1193,6 +1243,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         "launches_resume": counts["resume"],
         "launches_calibration": counts["calibration"],
         "launches_live": counts["live"],
+        "launches_concurrent": counts["concurrent"],
         "resume_device_batches": counts["resume_device_batches"],
         "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
         "max_in_flight": {name: most for name, (_, most) in in_flight.items()},
@@ -1205,12 +1256,72 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         "kernel_launches_by_name": {
             name: row["count"] for name, row in device.items() if "sha1" in name
         },
+        "recorded": recorded,
     }
     with open(report_path, "w") as sink:
         json.dump(report, sink)
     if log_sink is not None:
         log_sink.close()
     return code
+
+
+def recorded_checks(engine: DigestEngine, local: threading.local) -> dict:
+    """The recorded child's checks after its job: ``ANALYSIS_THREADS``
+    threads call ``engine.verify_pieces`` at once, each on one live
+    flush's shape (32 pieces of 256 KiB, one piece's digest wrong),
+    and their launches count as the ``concurrent`` step; then the
+    incident recorder captures a bundle. Returns the recorders' view:
+    the lock creation sites in the observed edges, the edges, the cycles
+    and the leaked protocol obligations (after the guards' 2 s settle
+    window), and the bundle's ``locks``."""
+    from downloader_tpu_torch.utils import incident
+
+    lock_recorder, protocol_recorder = RECORDERS
+    rng = np.random.default_rng(ANALYSIS_SEED)
+    batches = []
+    for index in range(ANALYSIS_THREADS):
+        pieces = [rng.bytes(TORRENT_PIECE) for _ in range(TORRENT_SHAPES[0])]
+        expected = [hashlib.sha1(piece).digest() for piece in pieces]
+        expected[index] = hashlib.sha1(pieces[index][1:]).digest()
+        batches.append((pieces, expected))
+    together = threading.Barrier(ANALYSIS_THREADS)
+    results: list = [None] * ANALYSIS_THREADS
+
+    def verify(index: int) -> None:
+        local.step = "concurrent"
+        pieces, expected = batches[index]
+        together.wait(timeout=60)
+        try:
+            results[index] = engine.verify_pieces(pieces, expected)
+        except Exception as exc:  # reported below, with the others' results
+            results[index] = repr(exc)
+
+    threads = [threading.Thread(target=verify, args=(i,), name=f"verify-{i}")
+               for i in range(ANALYSIS_THREADS)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=300)
+        assert not thread.is_alive(), f"{thread.name} did not finish"
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for index, got in enumerate(results):
+        assert got == [piece != index for piece in range(TORRENT_SHAPES[0])], (index, got)
+    bundle = incident.RECORDER.capture("chip smoke analysis phase", trigger="manual")
+    deadline = time.monotonic() + 2.0
+    while protocol_recorder.leaked() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    edges = lock_recorder.edges()
+    lock_recorder.uninstall()
+    protocol_recorder.uninstall()
+    return {
+        "sites": sorted({site for edge in edges for site in edge}),
+        "edges": [{"held": held, "acquired": acquired, "count": count}
+                  for (held, acquired), count in sorted(edges.items())],
+        "cycles": lock_recorder.cycles(),
+        "leaked": protocol_recorder.leaked(),
+        "bundle_locks": bundle["locks"],
+    }
 
 
 class _WholeBitfield:
@@ -1247,15 +1358,16 @@ def claim_pool_s(info: dict, workdir: str, flush_pieces: int) -> float:
     return elapsed
 
 
-def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool) -> dict:
+def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
+                 record: bool = False) -> dict:
     """One ``download-once`` of the magnet in a child interpreter under
-    ``counted_job``: (exit code, stdout, stderr, wall seconds, report,
-    span ms by name)."""
+    ``counted_job`` (``record``: under the port's recorders): (exit code,
+    stdout, stderr, wall seconds, report, span ms by name)."""
     report_path = os.path.join(base_dir, "report.json")
     trace_out = os.path.join(base_dir, "trace.json")
     command = [
         sys.executable, os.path.abspath(__file__), "--counted-job", report_path,
-        *(["--rehearse"] if rehearse else []), "--",
+        *(["--rehearse"] if rehearse else []), *(["--record"] if record else []), "--",
         "--trace-out", trace_out, "download-once", "--id", "episode-1",
         "--url", magnet, "--base-dir", base_dir,
     ]
@@ -2149,6 +2261,126 @@ def phase_fleet(payload: bytes, second: bytes, clips: dict, workdir: str, card: 
     return fields
 
 
+def phase_analysis(payload: bytes, workdir: str, card: str, rehearse: bool = False) -> dict:
+    """The port's static analyzer and runtime recorders on the card's
+    machine. Static: ``python -m downloader_tpu_torch.analysis --no-cache
+    --json`` must exit 0 with no violation, and ``--list-suppressions
+    --json`` must count ``ANALYSIS_SUPPRESSIONS``. Recorded: the port's
+    ``Seeder`` serves ``payload`` (256 KiB pieces) and a child
+    ``download-once`` of its magnet runs with ``--record``: the port's
+    ``LockOrderRecorder`` and ``ProtocolRecorder`` are installed before
+    the child imports the port, and after the job ``ANALYSIS_THREADS``
+    threads verify pieces on the card at once and an incident bundle is
+    captured. The recorded graph must have no cycle, no obligation may
+    leak, the bundle's ``locks`` must be set, and on the card the job
+    must launch the kernel and send nothing to hashlib, with lock sites
+    of the engine and the kernel wrapper in the graph. ``rehearse`` runs
+    it on a host without a card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+
+    phase_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    static = {}
+    for name, options in (("check", ["--no-cache", "--json"]),
+                          ("suppressions", ["--list-suppressions", "--json"])):
+        start = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "downloader_tpu_torch.analysis", *options],
+            cwd=root, env=child_env(), capture_output=True, text=True,
+            timeout=ANALYSIS_TIMEOUT_S,
+        )
+        seconds = time.perf_counter() - start
+        assert done.returncode == 0, f"analysis {name} exited {done.returncode}: {done.stdout[-3000:]}"
+        static[name] = {"seconds": seconds, "count": json.loads(done.stdout)["count"]}
+    assert static["check"]["count"] == 0, static
+    assert static["suppressions"]["count"] == ANALYSIS_SUPPRESSIONS, static
+
+    num_pieces = len(payload) // TORRENT_PIECE
+    key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
+    env = child_env(
+        S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off",
+    )
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    else:
+        engine_module.default_engine()._calibrate()
+        torch.cuda.synchronize()
+    sha1_cuda.launches = 0
+    seeder = Seeder(JOB_NAME, payload, piece_length=TORRENT_PIECE)
+    seed_launches = sha1_cuda.launches
+    base_dir = os.path.join(workdir, "analysis")
+    os.makedirs(os.path.join(base_dir, "episode-1"))
+    try:
+        seeder.start()
+        with S3Stub(credentials=credentials) as stub:
+            env["S3_ENDPOINT"] = f"http://{stub.endpoint}"
+            job = _torrent_job(seeder.magnet_uri, base_dir, env, rehearse, record=True)
+            stored = stub.buckets.get("triton-staging", {})
+            assert list(stored) == [key], list(stored)
+            assert hashlib.sha256(stored[key]).digest() == hashlib.sha256(payload).digest()
+            assert stub.list_multipart_uploads() == []
+    finally:
+        seeder.stop()
+    shutil.rmtree(base_dir)
+    report = job["report"]
+    recorded = report["recorded"]
+    steps = {
+        "analysis_seed": seed_launches,
+        "analysis_live": report["launches_live"],
+        "analysis_resume": report["launches_resume"],
+        "analysis_calibration": report["launches_calibration"],
+        "analysis_concurrent": report["launches_concurrent"],
+    }
+    assert recorded["cycles"] == [], recorded["cycles"]
+    assert recorded["leaked"] == [], recorded["leaked"]
+    assert recorded["bundle_locks"] is not None, "the bundle has no lock state"
+    sites = sorted({os.path.relpath(site, root) for site in recorded["sites"]})
+    port_edges = [
+        {**edge, "held": os.path.relpath(edge["held"], root),
+         "acquired": os.path.relpath(edge["acquired"], root)}
+        for edge in recorded["edges"]
+        if os.path.join(root, "downloader_tpu_torch") in edge["held"] + edge["acquired"]
+    ]
+    if not rehearse:
+        assert report["launches"] > 0 and report["host_batches"] == 0, report
+        assert steps["analysis_concurrent"] == ANALYSIS_THREADS, steps
+        for module in ("parallel/engine.py", "parallel/sha1_cuda.py"):
+            assert any(site.startswith(f"downloader_tpu_torch/{module}:") for site in sites), (
+                module, sites)
+    fields = dict(
+        clock="host wall clock on the card's machine",
+        seconds=time.perf_counter() - phase_start,
+        static_check_s=static["check"]["seconds"],
+        static_suppressions_s=static["suppressions"]["seconds"],
+        violations=static["check"]["count"],
+        suppressions=static["suppressions"]["count"],
+        payload_bytes=len(payload),
+        pieces=num_pieces,
+        job_wall_s=job["wall_s"],
+        threads=ANALYSIS_THREADS,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        host_batches=report["host_batches"],
+        device_batches=report["device_batches"],
+        lock_sites=len(sites),
+        lock_sites_of_the_port=[site for site in sites if site.startswith("downloader_tpu_torch")],
+        edges=len(recorded["edges"]),
+        edges_of_the_port=port_edges,
+        cycles=recorded["cycles"],
+        leaked=recorded["leaked"],
+        bundle_locks={
+            "edges": len(recorded["bundle_locks"]["edges"]),
+            "held_by_thread": recorded["bundle_locks"]["held_by_thread"],
+        },
+        object_sha256_equal_payload=True,
+        card=card,
+    )
+    emit("analysis", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2162,13 +2394,14 @@ def nvidia_smi() -> str:
 
 def main() -> int:
     if sys.argv[1:2] == ["--counted-job"]:
-        # the child of the torrent, daemon and fleet phases: python3
-        # chip_smoke.py --counted-job REPORT [--launch-log LOG]
-        # [--rehearse] -- <downloader_tpu_torch arguments>
+        # the child of the torrent, daemon, fleet and analysis phases:
+        # python3 chip_smoke.py --counted-job REPORT [--launch-log LOG]
+        # [--rehearse] [--record] -- <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
         options = sys.argv[3:split]
         launch_log = options[options.index("--launch-log") + 1] if "--launch-log" in options else None
-        return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log)
+        return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log,
+                           "--record" in options)
     if sys.argv[1:2] == ["--fleet-supervisor"]:
         # the fleet phase's supervisor: python3 chip_smoke.py
         # --fleet-supervisor LIFE_DIR [--rehearse] -- serve --workers N ...
@@ -2226,6 +2459,7 @@ def main() -> int:
         }
         daemon = phase_daemon(payload, second, clips, workdir, card)
         fleet = phase_fleet(payload, second, clips, workdir, card)
+        analysis = phase_analysis(payload[:ANALYSIS_BYTES], workdir, card)
 
     # the line's times are at the live flush's shape (P=32, B=4097),
     # which most launches of the torrent, daemon and fleet paths take
@@ -2234,7 +2468,7 @@ def main() -> int:
     kernel = dict(KERNEL)
     kernel.update(
         launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
-                  + fleet["launches"]),
+                  + fleet["launches"] + analysis["launches"]),
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),

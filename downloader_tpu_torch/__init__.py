@@ -27,7 +27,10 @@ path. What is ported so far:
 - ``daemon``   — configuration, the health server and the daemon;
 - ``cli``      — ``python -m downloader_tpu_torch download-once``: one
   job (download, scan, upload) with no broker; ``serve``: the
-  queue-driven daemon in one process (the fleet is not in this build).
+  queue-driven daemon, in one process or as a fleet (``--workers N``);
+- ``analysis`` — the concurrency and resource-safety analyzer over this
+  package (``python -m downloader_tpu_torch.analysis``) and its runtime
+  lock-order and protocol recorders.
 
 The digest entry points run on the card unless the caller passes
 ``device="cpu"``; the HTTP job path does no device work.

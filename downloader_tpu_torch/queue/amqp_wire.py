@@ -294,14 +294,7 @@ def write_frame(sock: socket.socket, frame_type: int, channel: int, payload: byt
         + payload
         + bytes([FRAME_END])
     )
-    # callers hold the dedicated _write_lock whose whole job is
-    # serializing this send; the heartbeat monitor tears down a wedged
-    # peer's socket, waking the holder. (The JAX package suppresses
-    # no-blocking-under-lock here. Its analyzer, run over this tree by
-    # path, does not follow calls from amqp.py into this module, so the
-    # suppression would match nothing; it returns with the port's own
-    # analyzer.)
-    sock.sendall(frame)
+    sock.sendall(frame)  # analysis: ignore[no-blocking-under-lock] callers hold the dedicated _write_lock whose whole job is serializing this send; the heartbeat monitor tears down a wedged peer's socket, waking the holder
 
 
 def write_method(

@@ -102,11 +102,17 @@ def _thread_dumps() -> list[dict]:
 
 def _lock_state() -> dict | None:
     """Edges + per-thread held stacks from the runtime lock-order
-    recorder, when a test/diagnostic session has one installed. The
-    recorder belongs to the analyzer, which this build does not carry
-    yet, so there is never one: ``None``, as the JAX package answers
-    when no recorder is installed."""
-    return None
+    recorder, when a test/diagnostic session has one installed."""
+    from ..analysis import runtime
+
+    recorder = runtime.current()
+    if recorder is None:
+        return None
+    edges = [
+        {"held": held, "acquired": acquired, "count": count}
+        for (held, acquired), count in sorted(recorder.edges().items())
+    ]
+    return {"edges": edges, "held_by_thread": recorder.held_snapshot()}
 
 
 class IncidentRecorder:

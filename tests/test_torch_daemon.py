@@ -37,6 +37,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from test_torch_analysis import torch_lock_order_guard, torch_protocol_guard  # noqa: F401  (module guards)
 import downloader_tpu.parallel.engine as ref_engine
 import downloader_tpu_torch.parallel.engine as port_engine
 from downloader_tpu_torch.fetch.seeder import Seeder

@@ -42,6 +42,7 @@ import time
 import numpy as np
 import pytest
 
+from test_torch_analysis import torch_protocol_guard  # noqa: F401  (module guards)
 BUCKET = "fleet-bkt"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -711,11 +712,13 @@ def storm_run(pkg, objects, tmp_path):
             for slot in supervisor.snapshot()["slots"]:
                 if slot["health_port"] and slot["state"] == "ready":
                     assert_worker_ledger_zero(slot["health_port"])
-            return {"objects": stored(s3), "converts": sink.converts(origin.url),
-                    "dangling": s3.list_multipart_uploads()}
         finally:
             sink.close()
             supervisor.drain()
+        # read once the fleet has drained: a redelivered duplicate
+        # (at-least-once) may still be uploading when the waits return
+        return {"objects": stored(s3), "converts": sink.converts(origin.url),
+                "dangling": s3.list_multipart_uploads()}
 
 
 def test_failpoint_storm_two_workers_drain_everything(tmp_path):

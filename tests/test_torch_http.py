@@ -13,6 +13,7 @@ import threading
 import numpy as np
 import pytest
 
+from test_torch_analysis import torch_lock_order_guard  # noqa: F401  (module guards)
 from downloader_tpu.fetch import DispatchClient as RefDispatchClient
 from downloader_tpu.fetch import HTTPBackend as RefHTTPBackend
 from downloader_tpu.fetch import TransferError as RefTransferError

@@ -8,9 +8,11 @@ JAX package's.
 - admission: one seeded stream of ledger charges and refunds, admission
   verdicts, releases, lane offers and takes gives the same ladder rungs,
   verdicts, quotas and lane order.
-- incident: bundles have the same keys, ``locks`` is ``None`` (the
-  runtime lock recorder belongs to the analyzer, which the port does not
-  carry yet) and the probe registry reports the same way.
+- incident: bundles have the same keys and the probe registry reports
+  the same way; ``locks`` is ``None`` in both with no recorder, and
+  under each package's ``LockOrderRecorder`` one scripted lock order
+  gives the same edges and held locks once sites are made relative to
+  their package.
 - canary: the port's prober catches the one-byte flip that the
   ``canary.corrupt`` failpoint puts into its upload, at the integrity
   stage, and passes a clean probe pair.
@@ -19,6 +21,9 @@ Each package keeps its own process-wide registry; each is reset before
 its run and the two runs never overlap.
 """
 
+import contextlib
+import json
+import os
 import random
 import threading
 import time
@@ -26,25 +31,30 @@ import time
 import numpy as np
 import pytest
 
+from test_torch_analysis import torch_protocol_guard  # noqa: F401  (module guards)
+from downloader_tpu.analysis import runtime as ref_runtime
 from downloader_tpu.utils import admission as ref_admission
 from downloader_tpu.utils import alerts as ref_alerts
+from downloader_tpu.utils import cancel as ref_cancel
 from downloader_tpu.utils import incident as ref_incident
 from downloader_tpu.utils import metrics as ref_metrics
 from downloader_tpu.utils import tsdb as ref_tsdb
+from downloader_tpu_torch.analysis import runtime
 from downloader_tpu_torch.daemon.app import Daemon
 from downloader_tpu_torch.daemon.config import Config
 from downloader_tpu_torch.fetch import DispatchClient, HTTPBackend
 from downloader_tpu_torch.queue import MemoryBroker, QueueClient
 from downloader_tpu_torch.store import Credentials, S3Client, Uploader
 from downloader_tpu_torch.store.stub import S3Stub
-from downloader_tpu_torch.utils import admission, alerts, canary, failpoints, incident
+from downloader_tpu_torch.utils import admission, alerts, canary, cancel, failpoints, incident
 from downloader_tpu_torch.utils import metrics, tsdb, watchdog
 from downloader_tpu_torch.utils.cancel import CancelToken
 
 PORT = {"metrics": metrics, "tsdb": tsdb, "alerts": alerts, "admission": admission,
-        "incident": incident}
+        "incident": incident, "cancel": cancel, "runtime": runtime}
 REF = {"metrics": ref_metrics, "tsdb": ref_tsdb, "alerts": ref_alerts,
-       "admission": ref_admission, "incident": ref_incident}
+       "admission": ref_admission, "incident": ref_incident, "cancel": ref_cancel,
+       "runtime": ref_runtime}
 T0 = 1_800_000_000.0
 SERIES = ("slo_job_duration_seconds_interactive", "slo_job_duration_seconds_bulk")
 
@@ -149,7 +159,10 @@ def _admission(pkg, seed):
                   [adm.normalize_tenant(v) for v in ("Acme", "", None, "a" * 300, "ok-1")]))
     for release in releases:
         release()
-    trace.append(("end", controller.tenants(), scheduler.pending()))
+    # every charge settles: the ledger-charge protocol balances
+    for key in charges:
+        ledger.refund(key)
+    trace.append(("end", controller.tenants(), scheduler.pending(), ledger.outstanding()))
     return trace
 
 
@@ -161,17 +174,47 @@ def test_admission_decisions_match_reference(seed):
     assert {"admit", "shed"} <= actions
 
 
-def test_incident_bundles_have_the_same_keys():
-    bundles = []
-    for pkg in (PORT, REF):
-        recorder = pkg["incident"].IncidentRecorder()
-        recorder.register_probe("demo", lambda: {"depth": 3})
-        bundle = recorder.capture("a drill", job_id="job-1", trigger="manual",
-                                  extra={"why": "test"})
-        bundles.append(bundle)
-    port, ref = bundles
+def _scripted_bundle(pkg, recorded):
+    """One bundle captured under a scripted lock order: a lock of this
+    file, then a ``CancelToken``'s (a lock site of the package), the
+    first still held at capture. ``recorded`` runs it under the package's
+    own ``LockOrderRecorder``."""
+    recorder = pkg["runtime"].LockOrderRecorder() if recorded else contextlib.nullcontext()
+    with recorder:
+        outer = threading.Lock()
+        token = pkg["cancel"].CancelToken()
+        incidents = pkg["incident"].IncidentRecorder()
+        incidents.register_probe("demo", lambda: {"depth": 3})
+        with outer:
+            with token._lock:
+                pass
+            return incidents.capture("a drill", job_id="job-1", trigger="manual",
+                                     extra={"why": "test"})
+
+
+def _package_relative(locks, pkg):
+    root = os.path.dirname(os.path.dirname(pkg["runtime"].__file__))
+    return json.loads(json.dumps(locks).replace(root + os.sep, "PKG" + os.sep))
+
+
+@pytest.mark.parametrize("recorded", [False, True], ids=["no-recorder", "recorder"])
+def test_incident_bundles_have_the_same_keys(recorded):
+    port, ref = (_scripted_bundle(pkg, recorded) for pkg in (PORT, REF))
     assert sorted(port) == sorted(ref)
-    assert port["locks"] is None and ref["locks"] is None
+    if recorded:
+        assert sorted(port["locks"]) == sorted(ref["locks"]) == ["edges", "held_by_thread"]
+        port_locks = _package_relative(port["locks"], PORT)
+        assert port_locks == _package_relative(ref["locks"], REF)
+        held_here = [
+            edge["acquired"] for edge in port_locks["edges"]
+            if edge["held"].startswith(__file__ + ":")
+        ]
+        assert any(site.startswith(os.path.join("PKG", "utils", "cancel.py:"))
+                   for site in held_here), port_locks
+        held = port_locks["held_by_thread"][threading.current_thread().name]
+        assert [site.rsplit(":", 1)[0] for site in held] == [__file__]
+    else:
+        assert port["locks"] is None and ref["locks"] is None
     assert port["probes"] == ref["probes"]
     assert (port["reason"], port["trigger"], port["job_id"], port["extra"]) == (
         ref["reason"], ref["trigger"], ref["job_id"], ref["extra"])

@@ -26,6 +26,7 @@ import time
 import numpy as np
 import pytest
 
+from test_torch_analysis import torch_lock_order_guard  # noqa: F401  (module guards)
 from downloader_tpu.queue import amqp as ref_amqp
 from downloader_tpu.queue import amqp_server as ref_amqp_server
 from downloader_tpu.queue import amqp_wire as ref_amqp_wire

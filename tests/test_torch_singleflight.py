@@ -33,6 +33,7 @@ import time
 
 import pytest
 
+from test_torch_analysis import torch_protocol_guard  # noqa: F401  (module guards)
 from test_torch_daemon import free_port, stop_planes
 from test_torch_fleet import (
     BUCKET,
