@@ -7,8 +7,12 @@ PYTHON      ?= python3
 APP         := downloader
 BINDIR      := bin
 DOCKER_IMAGE ?= downloader-tpu
+# the PyTorch/CUDA port (downloader_tpu_torch): its zipapp and its image
+TORCH_APP   := downloader-torch
+CUDA_IMAGE  ?= downloader-tpu-torch
 
-.PHONY: all dep build native wheel docker-build fmt fmt-fix analyze analyze-full test bench clean
+.PHONY: all dep build native wheel docker-build fmt fmt-fix analyze analyze-full test bench clean \
+	dep-torch native-torch kernel-torch build-torch analyze-torch docker-build-cuda
 
 all: dep native build
 
@@ -60,17 +64,49 @@ build: native
 wheel:
 	$(PYTHON) -m build --wheel --no-isolation --outdir $(BINDIR)/
 
+# The port. Its imports need torch (the wheel's `gpu` extra).
+dep-torch:
+	$(PYTHON) -c "import downloader_tpu_torch, downloader_tpu_torch.cli, torch"
+
+# The port's RC4 core, beside its source, as `native` builds the JAX
+# package's; rc4_native.py also compiles it at first use.
+native-torch:
+	@if command -v cc >/dev/null 2>&1; then \
+	  cc -O2 -shared -fPIC -o downloader_tpu_torch/fetch/_rc4.so downloader_tpu_torch/fetch/_rc4.c && \
+	  echo "built downloader_tpu_torch/fetch/_rc4.so"; \
+	else \
+	  echo "native-torch: no C compiler; MSE RC4 will use the pure-Python fallback"; \
+	fi
+
+# The CUDA SHA-1 kernel for sm_90a (needs nvcc), compiled by the module
+# with its own NVCC_FLAGS into the directory a checkout loads it from;
+# sha1_cuda.py also compiles it there at first use.
+kernel-torch:
+	$(PYTHON) -m downloader_tpu_torch.parallel --out build/downloader_tpu_torch
+
+# bin/downloader-torch.pyz: the port alone, with _rc4.so when a C
+# compiler exists and the kernel library when nvcc does
+# (hack/build_torch_pyz.py builds both into the archive itself).
+build-torch:
+	$(PYTHON) hack/build_torch_pyz.py --out $(BINDIR)/$(TORCH_APP).pyz
+
+# The port's image, for Hopper (sm_90a) only: Dockerfile.cuda.
+docker-build-cuda:
+	docker build -f Dockerfile.cuda -t $(CUDA_IMAGE) .
+
 docker-build:
 	docker build -t $(DOCKER_IMAGE) .
 
 # gofmt analogue (reference Makefile:35-37). No third-party formatter is
 # assumed; hack/fmt.py enforces whitespace/newline/tab hygiene with the
 # stdlib tokenizer. `make fmt` checks, `make fmt-fix` rewrites.
+FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py
+
 fmt:
-	$(PYTHON) hack/fmt.py downloader_tpu tests bench.py __graft_entry__.py
+	$(PYTHON) hack/fmt.py $(FMT_PATHS)
 
 fmt-fix:
-	$(PYTHON) hack/fmt.py --fix downloader_tpu tests bench.py __graft_entry__.py
+	$(PYTHON) hack/fmt.py --fix $(FMT_PATHS)
 
 # Concurrency & resource-safety static analysis (go vet analogue):
 # the CFG/dataflow/summary rule set — guarded-by, no-blocking-under-
@@ -98,6 +134,11 @@ analyze-artifacts:
 
 analyze-full:
 	$(PYTHON) -m downloader_tpu.analysis --no-cache
+
+# the port's own analyzer over downloader_tpu_torch/ (its cache is
+# .analysis-cache-torch.json)
+analyze-torch:
+	$(PYTHON) -m downloader_tpu_torch.analysis
 
 test:
 	$(PYTHON) -m pytest tests/ -q

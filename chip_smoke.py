@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet and its analyzer's recorders on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet, its analyzer's recorders and its installed forms on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -37,7 +37,13 @@ the port, has four threads verify pieces on the card at once after the
 job and captures an incident bundle: the recorded lock graph must be
 acyclic and hold the engine's and the kernel wrapper's locks, no
 protocol obligation may leak, and the bundle must carry the lock
-state. The last line is
+state. The ``packaging`` phase runs the port as an installed program
+from outside the checkout: the wheel built offline and installed into a
+target directory, whose counted torrent job must compile the kernel
+from the wheel's own source into a fresh cache and whose console script
+must reuse it; then the zipapp, whose counted job, with no nvcc to be
+found, must take the kernel library from the archive and load the
+native RC4 core. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -159,6 +165,14 @@ ANALYSIS_BYTES = 64 * 1024 * 1024
 ANALYSIS_THREADS = 4
 ANALYSIS_SEED = 7
 ANALYSIS_TIMEOUT_S = 300  # each analyzer run; about 5 s expected
+# the packaging phase: the port installed from its wheel and as its
+# zipapp, each run from outside the checkout; the wheel's counted job
+# takes the whole episode, the console script's and the archive's the
+# first PACKAGING_BYTES (256 pieces); the archive's child then checks
+# one live flush's shape made from PACKAGING_SEED
+PACKAGING_BYTES = 64 * 1024 * 1024
+PACKAGING_SEED = 8
+PACKAGING_TIMEOUT_S = 600  # each build step; seconds to a minute expected
 # what a child job or worker takes from this process's environment: the
 # host's own variables and no knob of the port, so every knob a phase
 # does not set stays at its default
@@ -1035,7 +1049,8 @@ def process_start_epoch() -> float:
 
 
 def counted_job(report_path: str, argv: list[str], rehearse: bool,
-                launch_log: str | None = None, record: bool = False) -> int:
+                launch_log: str | None = None, record: bool = False,
+                check_batch: bool = False) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
     ``report_path`` once ``cli.main`` returns: for ``download-once`` when
@@ -1059,7 +1074,15 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     before the port was imported) the job runs under the port's
     lock-order and protocol recorders, without the profiler, and
     ``recorded_checks`` runs after it; the report gains its result
-    under ``recorded``."""
+    under ``recorded``.
+
+    The report's ``package`` says where this process imported the port
+    from, where the kernel library came from (``sha1_cuda.origin``) and
+    what its compile took, and whether an nvcc could be found. With
+    ``check_batch`` (the packaging phase's archive child) the child also
+    loads the native RC4 core and, after the job, launches the kernel
+    on one live flush's shape as the ``check`` step; the ``package``
+    entry gains both results."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -1074,7 +1097,8 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         engine_module._default = DigestEngine(backend="hashlib")
     if record and RECORDERS is None:
         raise RuntimeError("--record needs the recorders installed before the port's imports")
-    counts = {"live": 0, "resume": 0, "calibration": 0, "concurrent": 0, "resume_device_batches": 0,
+    counts = {"live": 0, "resume": 0, "calibration": 0, "concurrent": 0, "check": 0,
+              "resume_device_batches": 0,
               "resumed": [], "verify_window": [float("inf"), float("-inf")]}
     # line-buffered: each line reaches the file as it is written
     log_sink = open(launch_log, "a", buffering=1) if launch_log else None
@@ -1221,6 +1245,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         stamps["job_end"] = time.time()
     stamps["profiler_stopped"] = time.time()
     recorded = recorded_checks(engine_module.default_engine(), local) if record else None
+    package = package_report(local, check_batch, rehearse)
     device = {}
     if profiled:
         for event in profiler.key_averages():
@@ -1231,8 +1256,9 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
                 }
     engine = engine_module._default
     total = sha1_cuda.launches
-    assert total == sum(counts[step] for step in ("live", "resume", "calibration", "concurrent")), (
-        total, counts)
+    assert total == sum(
+        counts[step] for step in ("live", "resume", "calibration", "concurrent", "check")
+    ), (total, counts)
     first, last = counts["verify_window"]
     report = {
         "code": code,
@@ -1244,6 +1270,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         "launches_calibration": counts["calibration"],
         "launches_live": counts["live"],
         "launches_concurrent": counts["concurrent"],
+        "launches_check": counts["check"],
         "resume_device_batches": counts["resume_device_batches"],
         "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
         "max_in_flight": {name: most for name, (_, most) in in_flight.items()},
@@ -1257,12 +1284,62 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
             name: row["count"] for name, row in device.items() if "sha1" in name
         },
         "recorded": recorded,
+        "package": package,
     }
     with open(report_path, "w") as sink:
         json.dump(report, sink)
     if log_sink is not None:
         log_sink.close()
     return code
+
+
+def package_report(local: threading.local, check_batch: bool, rehearse: bool) -> dict:
+    """Where this process took the port and its native libraries from:
+    the package's ``__file__``, the kernel library's path, origin and
+    compile seconds, and the nvcc ``sha1_cuda`` would run (None when none
+    can be found). With ``check_batch``: the native RC4 core's path
+    (None when RC4 runs in pure Python), and one live flush's shape
+    (P=32, B=4097) through the kernel wrapper as the ``check`` step,
+    held bit-exact against hashlib (a rehearsal runs the plain version
+    on 4 KiB pieces)."""
+    import downloader_tpu_torch
+    from downloader_tpu_torch.fetch import rc4_native
+
+    try:
+        nvcc = sha1_cuda._nvcc()
+    except RuntimeError:
+        nvcc = None
+    library = sha1_cuda._library
+    report = {
+        "file": downloader_tpu_torch.__file__,
+        "kernel_library": library._name if library is not None else None,
+        "kernel_origin": sha1_cuda.origin,
+        "kernel_compile_s": sha1_cuda.compile_s,
+        "nvcc": nvcc,
+    }
+    if not check_batch:
+        return report
+    native = rc4_native._load()
+    report["rc4_native"] = native._name if native is not None else None
+    rng = np.random.default_rng(PACKAGING_SEED)
+    size = 4096 if rehearse else TORRENT_PIECE
+    pieces = [rng.bytes(size) for _ in range(TORRENT_SHAPES[0])]
+    raw, counts = pack_bytes(pieces)
+    device = torch.device("cpu" if rehearse else "cuda")
+    blocks = to_gpu_layout(torch.from_numpy(raw).to(device))
+    nblocks = torch.from_numpy(counts).to(device)
+    local.step = "check"
+    try:
+        states = sha1_cuda.sha1_states(blocks, nblocks)
+    finally:
+        local.step = "live"
+    got = digests_to_bytes(states.cpu().numpy(), len(pieces))
+    report["check"] = {
+        "P": len(pieces),
+        "B": blocks.shape[0],
+        "equal_hashlib": got == [hashlib.sha1(piece).digest() for piece in pieces],
+    }
+    return report
 
 
 def recorded_checks(engine: DigestEngine, local: threading.local) -> dict:
@@ -1359,15 +1436,19 @@ def claim_pool_s(info: dict, workdir: str, flush_pieces: int) -> float:
 
 
 def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
-                 record: bool = False) -> dict:
+                 record: bool = False, script: str | None = None,
+                 check_batch: bool = False) -> dict:
     """One ``download-once`` of the magnet in a child interpreter under
-    ``counted_job`` (``record``: under the port's recorders): (exit code,
+    ``counted_job`` (``record``: under the port's recorders;
+    ``check_batch``: with the kernel batch check after the job), run as
+    ``script`` (a copy of this file; this file by default): (exit code,
     stdout, stderr, wall seconds, report, span ms by name)."""
     report_path = os.path.join(base_dir, "report.json")
     trace_out = os.path.join(base_dir, "trace.json")
     command = [
-        sys.executable, os.path.abspath(__file__), "--counted-job", report_path,
-        *(["--rehearse"] if rehearse else []), *(["--record"] if record else []), "--",
+        sys.executable, script or os.path.abspath(__file__), "--counted-job", report_path,
+        *(["--rehearse"] if rehearse else []), *(["--record"] if record else []),
+        *(["--check-batch"] if check_batch else []), "--",
         "--trace-out", trace_out, "download-once", "--id", "episode-1",
         "--url", magnet, "--base-dir", base_dir,
     ]
@@ -2381,6 +2462,269 @@ def phase_analysis(payload: bytes, workdir: str, card: str, rehearse: bool = Fal
     return fields
 
 
+def _files(directory: str) -> dict:
+    """Each file in ``directory``: (size, mtime in ns)."""
+    if not os.path.isdir(directory):
+        return {}
+    return {
+        entry.name: (entry.stat().st_size, entry.stat().st_mtime_ns)
+        for entry in os.scandir(directory) if entry.is_file()
+    }
+
+
+def ldd(path: str) -> list[str]:
+    done = subprocess.run(["ldd", path], capture_output=True, text=True, timeout=60, check=True)
+    return [line.strip() for line in done.stdout.splitlines() if line.strip()]
+
+
+def packaging_tools() -> dict:
+    """What this host offers the build steps: the programs the Makefile
+    and the CUDA image call, and this interpreter's packaging modules."""
+    import importlib.util
+    from importlib import metadata
+
+    tools = {name: shutil.which(name) for name in ("make", "cc", "nvcc", "docker", "ldd")}
+    for name in ("setuptools", "wheel", "pip"):
+        try:
+            tools[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            tools[name] = None
+    # setuptools 70.1 and later build wheels without the wheel package;
+    # looked up by file, since importing setuptools changes sys.path
+    spec = importlib.util.find_spec("setuptools")
+    own = spec is not None and os.path.isfile(
+        os.path.join(os.path.dirname(spec.origin), "command", "bdist_wheel.py"))
+    tools["bdist_wheel"] = "setuptools" if own else ("wheel" if tools["wheel"] else None)
+    tools["python"] = sys.version.split()[0]
+    tools["prefix"] = sys.prefix
+    return tools
+
+
+def _run_build(command: list[str], cwd: str, env: dict) -> tuple[float, str]:
+    """One build step in a child: (seconds, its standard output)."""
+    start = time.perf_counter()
+    done = subprocess.run(command, cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=PACKAGING_TIMEOUT_S)
+    seconds = time.perf_counter() - start
+    assert done.returncode == 0, f"{command[:4]} exited {done.returncode}: {done.stderr[-3000:]}"
+    return seconds, done.stdout
+
+
+def _packaging_job(seeder, payload: bytes, base_dir: str, env: dict, rehearse: bool,
+                   script: str | None = None, check_batch: bool = False,
+                   program: str | None = None) -> dict:
+    """One ``download-once`` of ``seeder``'s magnet into a fresh S3 stub,
+    holding the stored object against ``payload``: counted, through
+    ``script`` (``_torrent_job``), or, with ``program``, the installed
+    console script itself (no count: the entry point alone)."""
+    key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    os.makedirs(os.path.join(base_dir, "episode-1"))
+    with S3Stub(credentials=credentials) as stub:
+        env = dict(env, S3_ENDPOINT=f"http://{stub.endpoint}")
+        if program is None:
+            job = _torrent_job(seeder.magnet_uri, base_dir, env, rehearse, script=script,
+                               check_batch=check_batch)
+        else:
+            command = [program, "download-once", "--id", "episode-1",
+                       "--url", seeder.magnet_uri, "--base-dir", base_dir]
+            start = time.perf_counter()
+            done = subprocess.run(command, env=env, cwd=base_dir, capture_output=True, text=True,
+                                  timeout=TORRENT_JOB_TIMEOUT_S)
+            job = {"wall_s": time.perf_counter() - start, "stdout": done.stdout, "report": None}
+            assert done.returncode == 0, f"{program} exited {done.returncode}: {done.stderr[-3000:]}"
+        stored = stub.buckets.get("triton-staging", {})
+        assert list(stored) == [key], list(stored)
+        assert hashlib.sha256(stored[key]).digest() == hashlib.sha256(payload).digest(), (
+            "stored object != payload")
+        assert stub.list_multipart_uploads() == []
+    assert job["stdout"].splitlines() == [os.path.join(base_dir, "episode-1", JOB_NAME)], (
+        job["stdout"])
+    shutil.rmtree(base_dir)
+    summary = {"wall_s": job["wall_s"], "MBps": len(payload) / job["wall_s"] / 1e6,
+               "object_sha256_equal_payload": True}
+    report = job["report"]
+    if report is not None:
+        summary.update(
+            process_s=report["process_s"],
+            launches_by_step={step: report[f"launches_{step}"]
+                              for step in ("live", "resume", "calibration", "check")},
+            device_batches=report["device_batches"],
+            host_batches=report["host_batches"],
+            package=report["package"],
+        )
+    return summary
+
+
+def phase_packaging(payload: bytes, workdir: str, card: str, rehearse: bool = False) -> dict:
+    """The port as an installed program, run from outside the checkout.
+
+    Wheel: the wheel is built offline from a copy of the checkout's
+    sources and installed with ``pip install --target T/site``. A copy
+    of this script outside the checkout, with ``PYTHONPATH=T/site``, runs
+    the installed ``cli.main`` as a counted ``download-once`` of the
+    episode: it must import the port from ``T/site`` and compile the
+    kernel from the wheel's own source into its fresh cache. Then the
+    installed console script prints its help and downloads the first
+    ``PACKAGING_BYTES``, reusing that library (no new file in the cache).
+
+    Zipapp: ``hack/build_torch_pyz.py`` builds the archive (with the
+    kernel library, when nvcc exists); a counted child with
+    ``PYTHONPATH`` set to the archive and no nvcc it could find (an empty
+    ``CUDA_HOME``, no nvcc on ``PATH``: the CUDA image's runtime) runs
+    the first ``PACKAGING_BYTES`` and then one live flush's shape through
+    the kernel. It must take the library from the archive and load the
+    native RC4 core. Every child gets a fresh ``HOME`` and
+    ``XDG_CACHE_HOME`` and a working directory outside the checkout.
+
+    On the card each counted job must launch the kernel and send nothing
+    to hashlib. Without a setuptools that builds wheels the wheel part
+    prints why it did not run. ``rehearse`` runs it on a host without a
+    card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+
+    phase_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(workdir, "packaging")
+    outside = os.path.join(base, "outside")
+    os.makedirs(outside)
+    script = shutil.copy(os.path.abspath(__file__), outside)
+    small = payload[:PACKAGING_BYTES]
+    knobs = dict(S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off")
+
+    def env_for(name: str, pythonpath: str | None, **more) -> dict:
+        # a fresh HOME and XDG cache for each installation; PYTHONPATH
+        # the installation, or none (a build step)
+        env = child_env(HOME=os.path.join(base, name, "home"),
+                        XDG_CACHE_HOME=os.path.join(base, name, "xdg"), **knobs, **more)
+        if pythonpath is None:
+            del env["PYTHONPATH"]
+        else:
+            env["PYTHONPATH"] = pythonpath
+        return env
+
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    else:
+        engine_module.default_engine()._calibrate()
+        torch.cuda.synchronize()
+    sha1_cuda.launches = 0
+    episode = Seeder(JOB_NAME, payload, piece_length=TORRENT_PIECE)
+    first = Seeder(JOB_NAME, small, piece_length=TORRENT_PIECE)
+    seed_launches = sha1_cuda.launches
+    libraries: dict = {}
+    fields: dict = {}
+    try:
+        episode.start()
+        first.start()
+        tools = fields["tools"] = packaging_tools()
+        if tools["setuptools"] is None or tools["bdist_wheel"] is None:
+            reason = f"no setuptools with a bdist_wheel in {sys.executable}"
+            print(json.dumps({"wheel": f"not run: {reason}"}), flush=True)
+            fields["wheel"] = f"not run: {reason}"
+        else:
+            source = os.path.join(base, "src")
+            os.makedirs(source)
+            for name in ("pyproject.toml", "README.md"):
+                shutil.copy(os.path.join(root, name), source)
+            skip = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "*.tmp")
+            for package in ("downloader_tpu", "downloader_tpu_torch"):
+                shutil.copytree(os.path.join(root, package), os.path.join(source, package),
+                                ignore=skip)
+            build_env = env_for("wheel", None)
+            dist = os.path.join(base, "dist")
+            build_s, _ = _run_build(
+                [sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation",
+                 "--no-index", "-w", dist, source], base, build_env)
+            (wheel,) = os.listdir(dist)
+            site = os.path.join(base, "T", "site")
+            install_s, _ = _run_build(
+                [sys.executable, "-m", "pip", "install", "--no-deps", "--no-index",
+                 "--target", site, os.path.join(dist, wheel)], base, build_env)
+            env = env_for("wheel", site)
+            cache = os.path.join(env["XDG_CACHE_HOME"], "downloader_tpu_torch")
+            job = _packaging_job(episode, payload, os.path.join(base, "wheel-job"), env,
+                                 rehearse, script=script)
+            package = job["package"]
+            assert os.path.commonpath([package["file"], site]) == site, package
+            program = os.path.join(site, "bin", "downloader-torch")
+            done = subprocess.run([program, "--help"], env=env, cwd=outside,
+                                  capture_output=True, text=True, timeout=120)
+            assert done.returncode == 0 and "download-once" in done.stdout, done.stderr[-3000:]
+            before = _files(cache)
+            # the entry point alone has no hashlib engine to rehearse with
+            console = None if rehearse else _packaging_job(
+                first, small, os.path.join(base, "console-job"), env, rehearse, program=program)
+            after = _files(cache)
+            if not rehearse:
+                assert package["kernel_origin"] == "compiled" and package["kernel_compile_s"], package
+                assert os.path.dirname(package["kernel_library"]) == cache, package
+                assert after == before, ("the console script's job wrote the cache", before, after)
+                libraries["libsha1 (compiled from the wheel)"] = ldd(package["kernel_library"])
+            fields["wheel"] = dict(
+                wheel=wheel, build_s=build_s, install_s=install_s, site=site,
+                job=job, help_ok=True, console_job=console,
+                cache_files=sorted(after), console_job_reused_library=after == before,
+            )
+        archive = os.path.join(base, "downloader-torch.pyz")
+        pyz_s, out = _run_build(
+            [sys.executable, os.path.join(root, "hack", "build_torch_pyz.py"), "--out", archive],
+            outside, env_for("pyz-build", None))
+        built = json.loads(out.splitlines()[-1])
+        empty = os.path.join(base, "no-cuda")
+        os.makedirs(empty)
+        path = os.pathsep.join(
+            part for part in os.environ.get("PATH", "").split(os.pathsep)
+            if part and not os.path.exists(os.path.join(part, "nvcc"))
+        )
+        env = env_for("zipapp", archive, CUDA_HOME=empty, PATH=path)
+        job = _packaging_job(first, small, os.path.join(base, "zipapp-job"), env, rehearse,
+                             script=script, check_batch=True)
+        package = job["package"]
+        assert package["file"].startswith(archive + os.sep), package
+        assert package["nvcc"] is None, package
+        assert package["check"]["equal_hashlib"], package["check"]
+        if not rehearse:
+            assert package["kernel_origin"] == "archive", package
+            assert package["kernel_compile_s"] is None, package
+            assert package["rc4_native"] is not None, package
+            libraries["libsha1 (from the archive)"] = ldd(package["kernel_library"])
+            libraries["_rc4.so (from the archive)"] = ldd(package["rc4_native"])
+        fields["zipapp"] = dict(
+            build_s=pyz_s, bytes=os.path.getsize(archive), libraries=built["libraries"],
+            dropped=built["dropped"], job=job,
+        )
+    finally:
+        episode.stop()
+        first.stop()
+    shutil.rmtree(base)
+    jobs = [fields["zipapp"]["job"]]
+    if isinstance(fields["wheel"], dict):
+        jobs.append(fields["wheel"]["job"])
+    steps = {"packaging_seed": seed_launches}
+    for step in ("live", "resume", "calibration", "check"):
+        steps[f"packaging_{step}"] = sum(job["launches_by_step"][step] for job in jobs)
+    if not rehearse:
+        for job in jobs:
+            assert job["launches_by_step"]["live"] > 0 and job["host_batches"] == 0, job
+        assert steps["packaging_check"] == 1, steps
+    fields = dict(
+        clock="host wall clock on the card's machine",
+        seconds=time.perf_counter() - phase_start,
+        payload_bytes=len(payload),
+        first_bytes=len(small),
+        piece_length=TORRENT_PIECE,
+        **fields,
+        ldd=libraries,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        card=card,
+    )
+    emit("packaging", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2396,12 +2740,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--counted-job"]:
         # the child of the torrent, daemon, fleet and analysis phases:
         # python3 chip_smoke.py --counted-job REPORT [--launch-log LOG]
-        # [--rehearse] [--record] -- <downloader_tpu_torch arguments>
+        # [--rehearse] [--record] [--check-batch] -- <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
         options = sys.argv[3:split]
         launch_log = options[options.index("--launch-log") + 1] if "--launch-log" in options else None
         return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log,
-                           "--record" in options)
+                           "--record" in options, "--check-batch" in options)
     if sys.argv[1:2] == ["--fleet-supervisor"]:
         # the fleet phase's supervisor: python3 chip_smoke.py
         # --fleet-supervisor LIFE_DIR [--rehearse] -- serve --workers N ...
@@ -2427,6 +2771,8 @@ def main() -> int:
         "build",
         seconds=build_s,
         library=os.path.basename(built),
+        origin=sha1_cuda.origin,
+        compile_s=sha1_cuda.compile_s,
         ptxas=[line for line in sha1_cuda.build_log.splitlines() if line.strip()],
         torch=torch.__version__,
         cuda=torch.version.cuda,
@@ -2460,6 +2806,7 @@ def main() -> int:
         daemon = phase_daemon(payload, second, clips, workdir, card)
         fleet = phase_fleet(payload, second, clips, workdir, card)
         analysis = phase_analysis(payload[:ANALYSIS_BYTES], workdir, card)
+        packaging = phase_packaging(payload, workdir, card)
 
     # the line's times are at the live flush's shape (P=32, B=4097),
     # which most launches of the torrent, daemon and fleet paths take
@@ -2468,7 +2815,7 @@ def main() -> int:
     kernel = dict(KERNEL)
     kernel.update(
         launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
-                  + fleet["launches"] + analysis["launches"]),
+                  + fleet["launches"] + analysis["launches"] + packaging["launches"]),
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),

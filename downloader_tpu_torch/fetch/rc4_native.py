@@ -11,20 +11,28 @@ over: identical output (cross-checked in tests against RFC 6229 vectors
 and the JAX package's RC4), just slower — fine for handshakes and tests,
 throttling only bulk encrypted transfers on compiler-less hosts.
 
-The port ships no zipapp, so the JAX package's extraction of a prebuilt
-``_rc4.so`` out of an archive is not carried over: a read-only package
-directory compiles into the per-user cache instead.
+Zipapp deployments (bin/downloader-torch.pyz, built by
+hack/build_torch_pyz.py): ctypes cannot load a .so from inside a zip,
+so when the package files are not real paths the loader pulls
+``_rc4.so`` (shipped prebuilt in the archive) — or failing that the C
+source — out via importlib.resources into the per-user cache
+(utils/usercache.py) keyed by content hash, and loads/compiles from
+there. An extracted .so that fails to load (foreign arch) falls through
+to compiling the shipped source. First run pays one extraction; every
+later run hits the cache.
 """
 
 from __future__ import annotations
 
-import atexit
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+
+from ..utils import usercache
 
 _SO_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_rc4.so")
 _C_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_rc4.c")
@@ -85,43 +93,73 @@ def _compile() -> str | None:
 
 
 def _cache_dir() -> str:
-    """Per-user cache for the library when the package directory is
-    read-only (XDG-style). The fallback when $HOME is unusable is a PER-USER,
-    0700 directory under the tempdir — never the shared tempdir
-    itself, where another local user could pre-plant a .so at the
-    predictable content-hash name and have us CDLL it."""
-    root = os.environ.get("XDG_CACHE_HOME") or os.path.join(
-        os.path.expanduser("~"), ".cache"
-    )
-    candidates = [os.path.join(root, "downloader_tpu_torch")]
-    uid = os.getuid() if hasattr(os, "getuid") else "win"
-    candidates.append(
-        os.path.join(tempfile.gettempdir(), f"downloader_tpu_torch-{uid}")
-    )
-    for path in candidates:
+    """Where a library goes when it cannot go beside its source: the
+    per-user cache the port's CUDA kernel shares."""
+    return usercache.cache_dir()
+
+
+def _resource_bytes(name: str) -> bytes | None:
+    """Read a packaged file through importlib.resources — works from a
+    zipapp where plain paths do not exist."""
+    try:
+        import importlib.resources as resources
+
+        return (
+            resources.files(__package__).joinpath(name).read_bytes()
+        )
+    except Exception:
+        return None
+
+
+def _loadable(path: str) -> bool:
+    try:
+        ctypes.CDLL(path)
+        return True
+    except OSError:
+        return False
+
+
+def _materialize_from_archive() -> str | None:
+    """Running from a zipapp: place a loadable .so in the cache dir —
+    extract the shipped prebuilt if the archive has one AND it loads
+    on this host (a foreign-arch .so must not dead-end us), else
+    compile the shipped C source. Content-hash names make upgrades
+    rebuild and concurrent processes converge on the same file."""
+    cache = _cache_dir()
+    so_bytes = _resource_bytes("_rc4.so")
+    if so_bytes:
+        digest = hashlib.sha1(so_bytes).hexdigest()[:12]
         try:
-            os.makedirs(path, mode=0o700, exist_ok=True)
-            stat = os.stat(path)
-            if hasattr(os, "getuid") and (
-                stat.st_uid != os.getuid() or stat.st_mode & 0o022
-            ):
-                continue  # squatted or group/other-writable: unsafe
-            probe = os.path.join(path, ".probe")
-            with open(probe, "w"):
-                pass
-            os.unlink(probe)
-            return path
+            # temp file, then os.replace: racers never half-load; a
+            # foreign-arch .so is refused and falls through to the source
+            placed = usercache.place(
+                f"_rc4-{digest}.so", so_bytes, lambda path: _loadable(str(path))
+            )
         except OSError:
-            continue
-    # last resort: a fresh private directory (0700 by construction);
-    # per-process, so the cache is cold every run — safe over fast.
-    # Removed at interpreter exit: on hosts whose $HOME/XDG cache is
-    # permanently unusable this path runs EVERY process, and without
-    # cleanup each run would strand one directory (plus a compiled
-    # .so) in the tempdir forever
-    path = tempfile.mkdtemp(prefix="downloader_tpu_torch-")
-    atexit.register(shutil.rmtree, path, ignore_errors=True)
-    return path
+            placed = None  # extraction failed: fall through to the source
+        if placed is not None:
+            return str(placed)
+    c_bytes = _resource_bytes("_rc4.c")
+    if not c_bytes:
+        return None
+    digest = hashlib.sha1(c_bytes).hexdigest()[:12]
+    final = os.path.join(cache, f"_rc4-{digest}.so")
+    if os.path.exists(final) and _loadable(final):
+        return final
+    tmp_c = None
+    try:
+        fd, tmp_c = tempfile.mkstemp(suffix=".c", dir=cache)
+        with os.fdopen(fd, "wb") as handle:
+            handle.write(c_bytes)
+        return _compile_source(tmp_c, final)
+    except OSError:
+        return None
+    finally:
+        if tmp_c is not None:
+            try:
+                os.unlink(tmp_c)
+            except OSError:
+                pass
 
 
 def _load() -> "ctypes.CDLL | None":
@@ -133,6 +171,9 @@ def _load() -> "ctypes.CDLL | None":
             return _lib or None
         if os.path.exists(_SO_PATH):
             path = _SO_PATH
+        elif not os.path.isfile(_C_PATH):
+            # package files are not real paths: we are inside a zipapp
+            path = _materialize_from_archive()
         else:
             path = _compile()
         lib = None

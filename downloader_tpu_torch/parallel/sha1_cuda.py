@@ -3,10 +3,24 @@
 The kernel replaces the JAX package's Pallas kernel
 (downloader_tpu/parallel/sha1_pallas.py:_sha1_kernel). It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C entry,
-at first use, into ``build/downloader_tpu_torch/`` under the checkout
-(an installed package builds into ``~/.cache/downloader_tpu_torch/``);
-the file name carries a hash of the source, so an edited ``.cu``
-rebuilds. It is loaded with ``ctypes``.
+``libsha1-<hash>.so``, whose name carries a hash of the source, so an
+edited ``.cu`` rebuilds and no library of another source is ever loaded.
+:func:`build` takes the first of:
+
+1. a prebuilt library beside this module (the CUDA image);
+2. inside a zipapp, the same file in the archive, extracted to the
+   per-user cache (utils/usercache.py);
+3. in a checkout, ``build/downloader_tpu_torch/``, compiled there at
+   first use;
+4. otherwise the per-user cache, compiled there at first use (from an
+   archive, the source is written out first: nvcc cannot read a zip).
+
+``origin`` says which it was (``prebuilt``, ``archive`` or
+``compiled``) and ``compile_s`` how long this process's compile took.
+The library is loaded with ``ctypes``. ``python -m
+downloader_tpu_torch.parallel --out DIR`` (parallel/__main__.py) calls
+``build(DIR)`` and prints the path: the Makefile, the CUDA image and
+the zipapp build call that step.
 
 :func:`sha1_states` is what the rest of the package calls: for tensors
 on the CPU it runs the plain PyTorch version (parallel/sha1.py), for
@@ -20,31 +34,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import shutil
 import subprocess
 import threading
+import time
+from importlib import resources
 from pathlib import Path
 
 import torch
 
+from ..utils import usercache
 from . import sha1
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sha1.cu"
+_HERE = Path(__file__).resolve().parent
+# a real file in a checkout or an install; inside a zipapp only a member
+# of the archive, read through source_bytes()
+SOURCE = _HERE / "csrc" / "sha1.cu"
 # the kernel's message ring: kStages stages of kStageBlocks blocks
 RING = (4, 4)
-
-
-def _build_dir(root: Path) -> Path:
-    """Where the library is built: ``build/downloader_tpu_torch/`` when
-    the package lies in a checkout (``root`` holds its pyproject.toml),
-    else the user's cache, for an installed package whose site-packages
-    may not be writable."""
-    if (root / "pyproject.toml").is_file():
-        return root / "build" / "downloader_tpu_torch"
-    return Path.home() / ".cache" / "downloader_tpu_torch"
-
-
-BUILD_DIR = _build_dir(Path(__file__).resolve().parents[2])
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas", "-v",
@@ -60,38 +66,76 @@ _library: ctypes.CDLL | None = None
 # nvcc's output (ptxas register/spill report) from the build this
 # process made; empty when the library was already built
 build_log = ""
+# where the library build() returned came from: "prebuilt", "archive"
+# or "compiled"; None before the first call
+origin: str | None = None
+# seconds this process's nvcc run took; None when it compiled nothing
+compile_s: float | None = None
+
+
+def _build_dir(root: Path) -> Path:
+    """Where the library is compiled: ``build/downloader_tpu_torch/``
+    when the package lies in a checkout (``root`` holds its
+    pyproject.toml), else the per-user cache, for an installed package
+    whose site-packages may not be writable or for an archive."""
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "downloader_tpu_torch"
+    return Path(usercache.cache_dir())
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    found = shutil.which("nvcc")
+    found = usercache.find_nvcc()
     if found is None:
         raise RuntimeError(
-            f"nvcc not found (looked in {candidate} and on PATH); it is "
-            f"needed to build {SOURCE.name}"
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            f"when it is unset, and on PATH); it is needed to build "
+            f"{library_name()} from {SOURCE.name}, and no prebuilt library "
+            "of that name lies beside the module or in the archive"
         )
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libsha1-{digest}.so"
+def source_bytes() -> bytes:
+    """The kernel's source, read through the package's loader: a file in
+    a checkout or an install, a member inside a zipapp."""
+    return (resources.files(__package__) / "csrc" / "sha1.cu").read_bytes()
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    raise with nvcc's output if the build fails."""
-    global build_log
-    target = library_path()
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def library_name() -> str:
+    digest = hashlib.sha256(source_bytes()).hexdigest()[:16]
+    return f"libsha1-{digest}.so"
+
+
+def _extract(name: str) -> Path | None:
+    """Running from a zipapp: the archive's ``name`` placed in the
+    per-user cache, or None if the archive has none. A cached file with
+    other bytes (a compile of the same source) is replaced by the
+    archive's."""
+    member = resources.files(__package__) / name
+    if not member.is_file():
+        return None
+    return usercache.place(name, member.read_bytes())
+
+
+def _compile(target: Path) -> None:
+    """nvcc with ``NVCC_FLAGS`` into ``target``; raise with its output
+    if the build fails."""
+    global build_log, compile_s
+    nvcc = _nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
     partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    command = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(SOURCE)]
-    result = subprocess.run(command, capture_output=True, text=True)
+    source, staged = SOURCE, None
+    if not SOURCE.is_file():
+        staged = target.with_name(f"{target.stem}.{os.getpid()}.cu")
+        staged.write_bytes(source_bytes())
+        source = staged
+    command = [nvcc, *NVCC_FLAGS, "-o", str(partial), str(source)]
+    start = time.perf_counter()
+    try:
+        result = subprocess.run(command, capture_output=True, text=True)
+    finally:
+        if staged is not None:
+            staged.unlink(missing_ok=True)
     if result.returncode != 0:
         partial.unlink(missing_ok=True)
         raise RuntimeError(
@@ -99,7 +143,32 @@ def build() -> Path:
             f"{result.stderr}{result.stdout}"
         )
     os.replace(partial, target)
+    compile_s = time.perf_counter() - start
     build_log = result.stderr + result.stdout
+
+
+def build(out_dir: Path | None = None) -> Path:
+    """The library of this source: found in the first of the places the
+    module's docstring lists, or compiled into the first place that
+    compiles. With ``out_dir``, compiled into that directory unless it
+    holds the library already."""
+    global origin
+    name = library_name()
+    if out_dir is None:
+        beside = _HERE / name
+        if beside.is_file():
+            origin = "prebuilt"
+            return beside
+        if not _HERE.is_dir():
+            extracted = _extract(name)
+            if extracted is not None:
+                origin = "archive"
+                return extracted
+        out_dir = _build_dir(_HERE.parents[1])
+    target = Path(out_dir) / name
+    if not target.is_file():
+        _compile(target)
+    origin = "compiled"
     return target
 
 

@@ -500,10 +500,10 @@ class TestKernelWrapper:
         assert sha1_cuda.launches == before
 
     def test_library_name_follows_the_source(self):
-        name = sha1_cuda.library_path().name
+        name = sha1_cuda.library_name()
         digest = hashlib.sha256(sha1_cuda.SOURCE.read_bytes()).hexdigest()[:16]
         assert name == f"libsha1-{digest}.so"
-        assert sha1_cuda.BUILD_DIR == REPO / "build" / "downloader_tpu_torch"
+        assert sha1_cuda._build_dir(REPO) == REPO / "build" / "downloader_tpu_torch"
 
     def test_ring_constant_matches_the_source(self):
         # the tests and chip_smoke.py size their cases by RING
@@ -512,12 +512,13 @@ class TestKernelWrapper:
         assert f"constexpr int kStages = {stages};" in text
         assert f"constexpr int kStageBlocks = {stage_blocks};" in text
 
-    def test_installed_package_builds_into_the_user_cache(self, tmp_path):
+    def test_installed_package_builds_into_the_user_cache(self, tmp_path, monkeypatch):
         # installed, the package's grandparent is site-packages: no
         # pyproject.toml there, so the build goes where the user can write
         site = tmp_path / "site-packages"
         site.mkdir()
-        cache = Path.home() / ".cache" / "downloader_tpu_torch"
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+        cache = tmp_path / "xdg" / "downloader_tpu_torch"
         assert sha1_cuda._build_dir(site) == cache
         (tmp_path / "pyproject.toml").write_text("")
         assert sha1_cuda._build_dir(tmp_path) == tmp_path / "build" / "downloader_tpu_torch"
