@@ -12,7 +12,8 @@ TORCH_APP   := downloader-torch
 CUDA_IMAGE  ?= downloader-tpu-torch
 
 .PHONY: all dep build native wheel docker-build fmt fmt-fix analyze analyze-full test bench clean \
-	dep-torch native-torch kernel-torch build-torch analyze-torch docker-build-cuda
+	dep-torch native-torch kernel-torch build-torch analyze-torch docker-build-cuda \
+	failpoints-torch profile-torch
 
 all: dep native build
 
@@ -100,7 +101,7 @@ docker-build:
 # gofmt analogue (reference Makefile:35-37). No third-party formatter is
 # assumed; hack/fmt.py enforces whitespace/newline/tab hygiene with the
 # stdlib tokenizer. `make fmt` checks, `make fmt-fix` rewrites.
-FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py
+FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py hack/pipeline_torch.py hack/fleet_torch.py hack/failpoint_matrix_torch.py hack/profile_artifacts_torch.py
 
 fmt:
 	$(PYTHON) hack/fmt.py $(FMT_PATHS)
@@ -139,6 +140,15 @@ analyze-full:
 # .analysis-cache-torch.json)
 analyze-torch:
 	$(PYTHON) -m downloader_tpu_torch.analysis
+
+# the port's chaos and profiling tooling, as CI runs it: the per-seed
+# failpoint matrix (failpoint_matrix.json) and the profiling artifacts
+# (bench.collapsed, bench.svg, profile.json) into OUT
+failpoints-torch:
+	$(PYTHON) hack/failpoint_matrix_torch.py $(or $(OUT),/tmp/failpoints-torch)
+
+profile-torch:
+	$(PYTHON) hack/profile_artifacts_torch.py $(or $(OUT),/tmp/profile-torch) $(or $(JOBS),300)
 
 test:
 	$(PYTHON) -m pytest tests/ -q

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet, its analyzer's recorders and its installed forms on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet, its analyzer's recorders, its installed forms and its chaos and profiling tooling on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -43,7 +43,11 @@ target directory, whose counted torrent job must compile the kernel
 from the wheel's own source into a fresh cache and whose console script
 must reuse it; then the zipapp, whose counted job, with no nvcc to be
 found, must take the kernel library from the archive and load the
-native RC4 core. The last line is
+native RC4 core. The ``tooling`` phase runs the port's failpoint
+matrix and profiling artifacts as CI runs them and then one torrent job
+whose peer-wire reads and writes fail at a seeded rate: both sites must
+inject, every piece must be verified on the card and the stored object
+must equal the payload. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -173,6 +177,20 @@ ANALYSIS_TIMEOUT_S = 300  # each analyzer run; about 5 s expected
 PACKAGING_BYTES = 64 * 1024 * 1024
 PACKAGING_SEED = 8
 PACKAGING_TIMEOUT_S = 600  # each build step; seconds to a minute expected
+# the tooling phase: the port's failpoint matrix and profiling artifacts
+# run as CI runs them (each receipt's schedule fingerprint must be the
+# JAX package's), then one torrent job of the first TOOLING_BYTES (512
+# pieces) with the peer wire's failpoints armed at a seeded rate. A
+# 256 KiB piece takes about 50 socket calls; at 5 % a connection dies
+# within about ten and, with one seeder, four rounds in a row complete
+# nothing and the swarm gives up. At 0.2 % a connection lasts about ten
+# pieces: some 45 injections and as many dials for the job
+TOOLING_BYTES = 128 * 1024 * 1024
+TOOLING_SPEC = "peer.recv=fail:0.002,peer.send=fail:0.002"
+TOOLING_SEED = 9
+TOOLING_PROFILE_JOBS = 300
+TOOLING_TIMEOUT_S = 600  # each tool; about a minute expected
+MATRIX_FINGERPRINTS = {509: "8c90e617660b966e", 1307: "2a2a3d381bf2bc21", 9001: "727a423415f816c3"}
 # what a child job or worker takes from this process's environment: the
 # host's own variables and no knob of the port, so every knob a phase
 # does not set stays at its default
@@ -1050,7 +1068,7 @@ def process_start_epoch() -> float:
 
 def counted_job(report_path: str, argv: list[str], rehearse: bool,
                 launch_log: str | None = None, record: bool = False,
-                check_batch: bool = False) -> int:
+                check_batch: bool = False, cuda_engine: bool = False) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
     ``report_path`` once ``cli.main`` returns: for ``download-once`` when
@@ -1082,7 +1100,16 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     ``check_batch`` (the packaging phase's archive child) the child also
     loads the native RC4 core and, after the job, launches the kernel
     on one live flush's shape as the ``check`` step; the ``package``
-    entry gains both results."""
+    entry gains both results.
+
+    The port's failpoint registry is armed from ``FAILPOINT_SPEC`` and
+    ``FAILPOINT_SEED`` before the job, as ``serve()`` arms it (only the
+    tooling phase's torrent cell sets them), and the report's
+    ``failpoints`` is its snapshot after the job. With ``cuda_engine``
+    (that cell too) the default engine is
+    ``DigestEngine(backend="cuda")``: every batch goes to the card, the
+    few pieces a dropped connection's flush holds included, which
+    ``auto`` would price to hashlib."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -1091,14 +1118,18 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     from downloader_tpu_torch import cli
     from downloader_tpu_torch.parallel import engine as engine_module
     from downloader_tpu_torch.utils import tracing
+    from downloader_tpu_torch.utils.failpoints import FAILPOINTS
 
     tracing.MAX_SPANS_PER_TRACE = 1 << 20
+    FAILPOINTS.configure_from_env()
     if rehearse:
         engine_module._default = DigestEngine(backend="hashlib")
+    elif cuda_engine:
+        engine_module._default = DigestEngine(backend="cuda")
     if record and RECORDERS is None:
         raise RuntimeError("--record needs the recorders installed before the port's imports")
     counts = {"live": 0, "resume": 0, "calibration": 0, "concurrent": 0, "check": 0,
-              "resume_device_batches": 0,
+              "resume_device_batches": 0, "below_min_batch": [0, 0],
               "resumed": [], "verify_window": [float("inf"), float("-inf")]}
     # line-buffered: each line reaches the file as it is written
     log_sink = open(launch_log, "a", buffering=1) if launch_log else None
@@ -1184,6 +1215,12 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         if use and step() == "resume":
             with layers_lock:
                 counts["resume_device_batches"] += 1
+        if use and len(pieces) < self._min_batch:
+            # only a forced `cuda` engine sends these to the card: `auto`
+            # verifies a batch under its minimum with hashlib
+            with layers_lock:
+                counts["below_min_batch"][0] += 1
+                counts["below_min_batch"][1] += len(pieces)
         if not use:
             log_line(host_batch=len(pieces), job=getattr(local, "job", ""), t=time.time())
         return use
@@ -1272,6 +1309,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         "launches_concurrent": counts["concurrent"],
         "launches_check": counts["check"],
         "resume_device_batches": counts["resume_device_batches"],
+        "below_min_batch": dict(zip(("batches", "pieces"), counts["below_min_batch"])),
         "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
         "max_in_flight": {name: most for name, (_, most) in in_flight.items()},
         "resumed": counts["resumed"],
@@ -1285,6 +1323,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         },
         "recorded": recorded,
         "package": package,
+        "failpoints": FAILPOINTS.snapshot(),
     }
     with open(report_path, "w") as sink:
         json.dump(report, sink)
@@ -1437,10 +1476,11 @@ def claim_pool_s(info: dict, workdir: str, flush_pieces: int) -> float:
 
 def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
                  record: bool = False, script: str | None = None,
-                 check_batch: bool = False) -> dict:
+                 check_batch: bool = False, cuda_engine: bool = False) -> dict:
     """One ``download-once`` of the magnet in a child interpreter under
     ``counted_job`` (``record``: under the port's recorders;
-    ``check_batch``: with the kernel batch check after the job), run as
+    ``check_batch``: with the kernel batch check after the job;
+    ``cuda_engine``: every batch on the card), run as
     ``script`` (a copy of this file; this file by default): (exit code,
     stdout, stderr, wall seconds, report, span ms by name)."""
     report_path = os.path.join(base_dir, "report.json")
@@ -1448,7 +1488,8 @@ def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
     command = [
         sys.executable, script or os.path.abspath(__file__), "--counted-job", report_path,
         *(["--rehearse"] if rehearse else []), *(["--record"] if record else []),
-        *(["--check-batch"] if check_batch else []), "--",
+        *(["--check-batch"] if check_batch else []),
+        *(["--cuda-engine"] if cuda_engine else []), "--",
         "--trace-out", trace_out, "download-once", "--id", "episode-1",
         "--url", magnet, "--base-dir", base_dir,
     ]
@@ -2725,6 +2766,160 @@ def phase_packaging(payload: bytes, workdir: str, card: str, rehearse: bool = Fa
     return fields
 
 
+def _run_tool(script: str, out_dir: str, report: str, *arguments: str) -> dict:
+    """One of the port's hack tools as CI runs it (``python script
+    out_dir arguments``), in a child process from the checkout's root;
+    it must exit 0. Returns its wall seconds and its JSON report,
+    ``report`` in ``out_dir``."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, script, out_dir, *arguments],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=child_env(),
+        capture_output=True, text=True, timeout=TOOLING_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - start
+    assert done.returncode == 0, (
+        f"{script} exited {done.returncode}: {done.stdout[-2000:]} {done.stderr[-3000:]}")
+    with open(os.path.join(out_dir, report)) as source:
+        return {"seconds": seconds, "report": json.load(source)}
+
+
+def phase_tooling(payload: bytes, workdir: str, card: str, rehearse: bool = False) -> dict:
+    """The port's chaos and profiling tooling on the card's machine.
+
+    ``hack/failpoint_matrix_torch.py`` runs as CI runs it: every default
+    seed must complete its jobs with no multipart upload left open and
+    an empty admission ledger, under the JAX package's schedule
+    fingerprint, and the SIGKILL-mid-coalesce cell (the port's 2-worker
+    fleet, ``hack/fleet_torch.py``) must pass.
+    ``hack/profile_artifacts_torch.py`` must sample its wave of
+    ``TOOLING_PROFILE_JOBS`` small jobs and write the collapsed stacks,
+    the SVG flamegraph and ``profile.json``.
+
+    The torrent cell: the port's ``Seeder`` serves ``payload`` (256 KiB
+    pieces) and a counted ``download-once`` of its magnet runs in a
+    child with ``FAILPOINT_SPEC`` = ``TOOLING_SPEC`` armed at
+    ``TOOLING_SEED``: its peer-wire reads and writes fail at a seeded
+    rate, so connections drop and the job dials again. The child's
+    engine is ``DigestEngine(backend="cuda")``, so a dropped
+    connection's partial flush goes to the card too. Both sites must
+    inject and the stored object must equal the payload byte for byte;
+    on the card every piece must be verified by the kernel (launches
+    counted by step, 0 hashlib batches). The forced engine bypasses
+    ``auto``: ``below_auto_min_batch`` counts the flushes under its
+    minimum batch, which ``auto`` would verify with hashlib. ``rehearse``
+    runs it on a host without a card (hashlib engines)."""
+    from downloader_tpu_torch.fetch.seeder import Seeder
+    from downloader_tpu_torch.parallel import engine as engine_module
+
+    phase_start = time.perf_counter()
+    base = os.path.join(workdir, "tooling")
+    matrix = _run_tool("hack/failpoint_matrix_torch.py", os.path.join(base, "failpoints"),
+                       "failpoint_matrix.json")
+    rows = matrix["report"]["seeds"]
+    assert {row["seed"]: row["schedule_fingerprint"] for row in rows} == MATRIX_FINGERPRINTS, rows
+    for row in rows:
+        assert row["ok"] and row["completed"] == row["jobs"], row
+        assert row["dangling_multiparts"] == 0 and row["ledger_outstanding"] == [], row
+    coalesce = matrix["report"]["sigkill_mid_coalesce"]
+    assert coalesce["ok"], coalesce
+    profile_dir = os.path.join(base, "profile")
+    profile = _run_tool("hack/profile_artifacts_torch.py", profile_dir, "profile.json",
+                        str(TOOLING_PROFILE_JOBS))
+    assert profile["report"]["samples"] > 0, profile
+    artifacts = _files(profile_dir)
+    assert {"bench.collapsed", "bench.svg", "profile.json"} <= set(artifacts), artifacts
+    assert all(size > 0 for size, _ in artifacts.values()), artifacts
+
+    key = f"episode-1/original/{base64.b64encode(JOB_NAME.encode()).decode()}"
+    env = child_env(
+        S3_ACCESS_KEY="smoke-ak", S3_SECRET_KEY="smoke-sk", DHT_BOOTSTRAP="off", LSD="off",
+        FAILPOINT_SPEC=TOOLING_SPEC, FAILPOINT_SEED=str(TOOLING_SEED),
+    )
+    credentials = Credentials(access_key="smoke-ak", secret_key="smoke-sk")
+    if rehearse:
+        engine_module._default = DigestEngine(backend="hashlib")
+    else:
+        engine_module.default_engine()._calibrate()
+        torch.cuda.synchronize()
+    sha1_cuda.launches = 0
+    seeder = Seeder(JOB_NAME, payload, piece_length=TORRENT_PIECE)
+    seed_launches = sha1_cuda.launches
+    base_dir = os.path.join(base, "torrent")
+    os.makedirs(os.path.join(base_dir, "episode-1"))
+    try:
+        seeder.start()
+        with S3Stub(credentials=credentials) as stub:
+            env["S3_ENDPOINT"] = f"http://{stub.endpoint}"
+            job = _torrent_job(seeder.magnet_uri, base_dir, env, rehearse, cuda_engine=True)
+            stored = stub.buckets.get("triton-staging", {})
+            assert list(stored) == [key], list(stored)
+            assert stored[key] == payload, "stored object != payload"
+            assert stub.list_multipart_uploads() == []
+    finally:
+        seeder.stop()
+    shutil.rmtree(base)
+    report = job["report"]
+    injections = {site: entry["injected"] for site, entry in report["failpoints"]["sites"].items()}
+    assert injections.get("peer.recv", 0) > 0 and injections.get("peer.send", 0) > 0, injections
+    steps = {
+        "tooling_seed": seed_launches,
+        "tooling_live": report["launches_live"],
+        "tooling_resume": report["launches_resume"],
+        "tooling_calibration": report["launches_calibration"],
+    }
+    if not rehearse:
+        seen = sum(report["kernel_launches_by_name"].values())
+        assert seen == report["launches"], (seen, report["launches"])
+        assert report["launches_live"] > 0 and report["host_batches"] == 0, report
+        assert report["launches_live"] == (
+            report["device_batches"] - report["resume_device_batches"]), report
+    fields = dict(
+        clock="host wall clock on the card's machine; device time from the job's profiler",
+        seconds=time.perf_counter() - phase_start,
+        failpoint_matrix={
+            "seconds": matrix["seconds"],
+            "seeds": [{k: row[k] for k in ("seed", "schedule_fingerprint", "jobs", "completed",
+                                          "elapsed_s", "injections", "dangling_multiparts",
+                                          "ledger_outstanding", "ok")} for row in rows],
+            "sigkill_mid_coalesce": {k: coalesce[k] for k in ("seed", "elapsed_s", "rc", "ok")},
+        },
+        profile_artifacts={
+            "seconds": profile["seconds"],
+            "files": {name: size for name, (size, _) in artifacts.items()},
+            **{k: profile["report"][k] for k in ("jobs", "elapsed_s", "samples", "attributed_pct",
+                                                 "top_cpu_role", "stage_cpu_pct", "wait_locks",
+                                                 "modes_served")},
+        },
+        torrent={
+            "payload_bytes": len(payload),
+            "pieces": len(payload) // TORRENT_PIECE,
+            "spec": TOOLING_SPEC,
+            "failpoint_seed": TOOLING_SEED,
+            "injections": injections,
+            "wall_s": job["wall_s"],
+            "job_wall_s": report["wall_s"],
+            "MBps": len(payload) / job["wall_s"] / 1e6,
+            "process_s": report["process_s"],
+            "peer_connects": job["spans_by_name"].get("peer-connect", {}).get("count", 0),
+            "piece_spans": job["spans_by_name"].get("piece", {}).get("count", 0),
+            "device_busy_ms": report["device_busy_ms"],
+            "backend_name": report["backend_name"],
+            "device_batches": report["device_batches"],
+            "host_batches": report["host_batches"],
+            # the cell forces a `cuda` engine; under the installed
+            # program's `auto` these flushes, at least, would go to hashlib
+            "below_auto_min_batch": report["below_min_batch"],
+            "object_equal_payload": True,
+        },
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        card=card,
+    )
+    emit("tooling", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2740,12 +2935,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--counted-job"]:
         # the child of the torrent, daemon, fleet and analysis phases:
         # python3 chip_smoke.py --counted-job REPORT [--launch-log LOG]
-        # [--rehearse] [--record] [--check-batch] -- <downloader_tpu_torch arguments>
+        # [--rehearse] [--record] [--check-batch] [--cuda-engine]
+        # -- <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
         options = sys.argv[3:split]
         launch_log = options[options.index("--launch-log") + 1] if "--launch-log" in options else None
         return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log,
-                           "--record" in options, "--check-batch" in options)
+                           "--record" in options, "--check-batch" in options,
+                           "--cuda-engine" in options)
     if sys.argv[1:2] == ["--fleet-supervisor"]:
         # the fleet phase's supervisor: python3 chip_smoke.py
         # --fleet-supervisor LIFE_DIR [--rehearse] -- serve --workers N ...
@@ -2807,6 +3004,7 @@ def main() -> int:
         fleet = phase_fleet(payload, second, clips, workdir, card)
         analysis = phase_analysis(payload[:ANALYSIS_BYTES], workdir, card)
         packaging = phase_packaging(payload, workdir, card)
+        tooling = phase_tooling(payload[:TOOLING_BYTES], workdir, card)
 
     # the line's times are at the live flush's shape (P=32, B=4097),
     # which most launches of the torrent, daemon and fleet paths take
@@ -2815,7 +3013,8 @@ def main() -> int:
     kernel = dict(KERNEL)
     kernel.update(
         launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
-                  + fleet["launches"] + analysis["launches"] + packaging["launches"]),
+                  + fleet["launches"] + analysis["launches"] + packaging["launches"]
+                  + tooling["launches"]),
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),

@@ -23,28 +23,37 @@ and the trace ids only for presence: a producer mints a fresh trace id
 per run) and the open multipart uploads. The port's supervisor spawns
 ``python -m downloader_tpu_torch serve``, which a test pins.
 
-The file also holds the harness the other fleet suites of the port
-import: the package namespaces, the loopback origin, job publishing
-and the ``Convert`` sink.
+The file also holds the package namespaces the other fleet suites of
+the port import, and passes on the rig they share from
+``hack/fleet_torch.py``: the loopback origin, job publishing and the
+``Convert`` sink.
 """
 
-import http.client
-import http.server
 import importlib
 import json
 import os
 import signal
-import socketserver
 import sys
-import threading
 import time
 
-import numpy as np
 import pytest
 
 from test_torch_analysis import torch_protocol_guard  # noqa: F401  (module guards)
-BUCKET = "fleet-bkt"
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from hack.fleet_torch import (  # noqa: E402  (the rig the fleet suites share)
+    ConvertSink,
+    Origin,
+    http_get,
+    payload,
+    publish_job,
+    stored,
+    wait,
+    worker_env,
+)
 
 
 def package(root):
@@ -70,20 +79,6 @@ PORT = package("downloader_tpu_torch")
 REF = package("downloader_tpu")
 PACKAGES = (PORT, REF)
 PACKAGE_IDS = ("port", "ref")
-
-
-def payload(size, seed):
-    return np.random.default_rng(seed).integers(0, 256, size, np.uint8).tobytes()
-
-
-def wait(predicate, timeout: float, what: str, interval: float = 0.05):
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        value = predicate()
-        if value:
-            return value
-        time.sleep(interval)
-    raise AssertionError(f"timed out after {timeout}s waiting for {what}")
 
 
 @pytest.fixture(autouse=True)
@@ -283,213 +278,6 @@ def test_heartbeat_writer_writes_atomically(tmp_path):
 # -- real-worker plumbing --------------------------------------------------------
 
 
-class Origin:
-    """Threaded HTTP origin serving a dict of path -> payload, with HEAD
-    and (optionally throttled) GET incl. Range support; counts data GETs
-    per path."""
-
-    def __init__(self, objects, rate_bps: float = 0.0):
-        origin = self
-
-        class Handler(http.server.BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-
-            def log_message(self, *args):
-                pass
-
-            def do_HEAD(self):
-                body = origin.objects.get(self.path)
-                if body is None:
-                    self.send_response(404)
-                    self.send_header("Content-Length", "0")
-                    self.end_headers()
-                    return
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(body)))
-                self.send_header("Accept-Ranges", "bytes")
-                self.end_headers()
-
-            def do_GET(self):
-                body = origin.objects.get(self.path)
-                with origin.lock:
-                    origin.gets[self.path] = origin.gets.get(self.path, 0) + 1
-                if body is None:
-                    self.send_response(404)
-                    self.send_header("Content-Length", "0")
-                    self.end_headers()
-                    return
-                start, end = 0, len(body)
-                header = self.headers.get("Range")
-                if header and header.startswith("bytes="):
-                    lo, _, hi = header[len("bytes="):].partition("-")
-                    start = int(lo) if lo else 0
-                    end = int(hi) + 1 if hi else len(body)
-                    self.send_response(206)
-                    self.send_header("Content-Range", f"bytes {start}-{end - 1}/{len(body)}")
-                else:
-                    self.send_response(200)
-                self.send_header("Content-Length", str(end - start))
-                self.send_header("Accept-Ranges", "bytes")
-                self.end_headers()
-                window = body[start:end]
-                chunk = 64 * 1024
-                for offset in range(0, len(window), chunk):
-                    piece = window[offset:offset + chunk]
-                    try:
-                        self.wfile.write(piece)
-                        self.wfile.flush()
-                    except OSError:
-                        return
-                    if origin.rate_bps > 0:
-                        time.sleep(len(piece) / origin.rate_bps)
-
-        self.objects = dict(objects)
-        self.rate_bps = rate_bps
-        self.gets = {}
-        self.lock = threading.Lock()
-        self._server = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
-        self._server.daemon_threads = True
-        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
-
-    @property
-    def url(self) -> str:
-        host, port = self._server.server_address[:2]
-        return f"http://{host}:{port}"
-
-    def data_gets(self) -> int:
-        with self.lock:
-            return sum(self.gets.values())
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._server.shutdown()
-        self._server.server_close()
-
-
-def worker_env(pkg, broker, s3, base_dir, **extra):
-    env = {
-        "BROKER": "amqp",
-        "RABBITMQ_ENDPOINT": broker.endpoint,
-        "RABBITMQ_USERNAME": "",
-        "RABBITMQ_PASSWORD": "",
-        "S3_ENDPOINT": f"http://{s3.endpoint}",
-        "S3_ACCESS_KEY": pkg.creds.access_key,
-        "S3_SECRET_KEY": pkg.creds.secret_key,
-        "BUCKET": BUCKET,
-        "DOWNLOAD_DIR": base_dir,
-        "JOB_CONCURRENCY": "1",
-        "PREFETCH": "4",
-        "BATCH_JOBS": "1",
-        "HTTP_SEGMENTS": "1",
-        "S3_MULTIPART_THRESHOLD": str(128 * 1024),
-        "S3_PART_SIZE": str(128 * 1024),
-        "PROFILE": "0",
-        "TSDB_INTERVAL": "off",
-        "ALERT_INTERVAL": "off",
-        "LSD": "off",
-        "DHT_BOOTSTRAP": "off",
-        "WATCHDOG_STALL_S": "60",
-        "MAX_JOB_RETRIES": "6",
-        "RETRY_DELAY": "0.1",
-        "RETRY_DELAY_CAP": "0.5",
-        "PUBLISH_CONFIRM_TIMEOUT": "10",
-        "FAILPOINT_SPEC": "",
-        "LOG_LEVEL": "info",
-    }
-    env.update(extra)
-    return env
-
-
-def declare_topology(channel, topic: str) -> None:
-    channel.declare_exchange(topic)
-    for index in range(2):
-        name = f"{topic}-{index}"
-        channel.declare_queue(name)
-        channel.bind_queue(name, topic, name)
-
-
-def publish_job(pkg, broker, media_id: str, url: str, job_class: str = ""):
-    """Publish one Download with a producer-minted trace context (the
-    continuity anchor every redelivery must preserve); topology is
-    declared first so a not-yet-started worker can't lose it."""
-    context = pkg.tracing.TraceContext.mint()
-    headers = {pkg.tracing.TRACE_CONTEXT_HEADER: context.header_value()}
-    if job_class:
-        headers["X-Job-Class"] = job_class
-    connection = broker.broker.connect()
-    try:
-        channel = connection.channel()
-        declare_topology(channel, "v1.download")
-        body = pkg.wire.Download(media=pkg.wire.Media(id=media_id, source_uri=url)).marshal()
-        channel.publish("v1.download", "v1.download-0", body, headers=headers, persistent=True)
-        channel.close()
-    finally:
-        connection.close()
-    return context
-
-
-class ConvertSink:
-    """Consumes both v1.convert shards: (media id, trace id) pairs as
-    workers publish them, and each Convert's media bytes."""
-
-    def __init__(self, pkg, broker):
-        self.received = []
-        self.media = []
-        self.stamped = True
-        self._lock = threading.Lock()
-        self._connection = broker.broker.connect()
-        channel = self._connection.channel()
-        channel.set_prefetch(200)
-        declare_topology(channel, "v1.convert")
-        tracing = pkg.tracing
-
-        def on_message(message, ch=channel):
-            convert = pkg.wire.Convert.unmarshal(message.body)
-            context = tracing.TraceContext.parse(message.headers.get(tracing.TRACE_CONTEXT_HEADER))
-            with self._lock:
-                self.received.append((convert.media.id if convert.media else "",
-                                      context.trace_id if context else ""))
-                self.media.append(convert.media)
-                self.stamped = self.stamped and bool(convert.created_at)
-            ch.ack(message.delivery_tag)
-
-        for index in range(2):
-            channel.consume(f"v1.convert-{index}", on_message)
-
-    def snapshot(self):
-        with self._lock:
-            return list(self.received)
-
-    def converts(self, origin_url: str):
-        """The distinct Convert media payloads, sorted, with the run's
-        loopback origin written as ``ORIGIN`` (a redelivered job may
-        publish twice: at-least-once)."""
-        with self._lock:
-            media = list(self.media)
-        out = set()
-        for entry in media:
-            if entry is not None:
-                entry.source_uri = entry.source_uri.replace(origin_url, "ORIGIN")
-            out.add(b"" if entry is None else entry.marshal())
-        return sorted(out)
-
-    def close(self):
-        self._connection.close()
-
-
-def http_get(port: int, path: str, timeout: float = 10.0):
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
-    try:
-        conn.request("GET", path)
-        response = conn.getresponse()
-        return response.status, response.read()
-    finally:
-        conn.close()
-
-
 def scrape(port: int, path: str = "/metrics") -> str:
     return http_get(port, path, timeout=2.0)[1].decode()
 
@@ -505,12 +293,6 @@ def assert_worker_ledger_zero(port: int) -> None:
     budgets = json.loads(scrape(port, "/debug/admission")).get("ledger", {}).get("budgets", {})
     used = {name: entry.get("used", 0) for name, entry in budgets.items() if entry.get("used", 0)}
     assert not used, f"worker ledger not balanced to zero: {used}"
-
-
-def stored(s3) -> dict:
-    """The bucket's objects, but for the canary plane's own probes."""
-    return {key: bytes(data) for key, data in s3.buckets.get(BUCKET, {}).items()
-            if not key.startswith("canary-")}
 
 
 def spawn_worker(pkg, instance: str, env_overrides):

@@ -14,10 +14,11 @@ Mirrors ``tests/test_singleflight.py`` over both packages:
   seam's degrade path;
 - the fleet walks: a real 2-worker fleet of each package drains a flash
   crowd of identical jobs with ONE origin GET, and a seeded SIGKILL of
-  the coalesce leader mid-fetch promotes a follower. Both packages'
-  fleets run one after the other on the same job stream and must store
-  the same objects, publish the same Converts and report the same
-  amplification on ``/debug/flows``.
+  the coalesce leader mid-fetch promotes a follower (the walk is
+  ``hack/fleet_torch.py``'s, whose port case the failpoint matrix
+  runs). Both packages' fleets run one after the other on the same job
+  stream and must store the same objects, publish the same Converts
+  and report the same amplification on ``/debug/flows``.
 
 The last tests drive the port's one-process ``serve()``: with
 ``CACHE_DIR`` alone (no ``SINGLEFLIGHT_DIR``) it serves a second job
@@ -36,29 +37,34 @@ import pytest
 from test_torch_analysis import torch_protocol_guard  # noqa: F401  (module guards)
 from test_torch_daemon import free_port, stop_planes
 from test_torch_fleet import (
-    BUCKET,
     PACKAGE_IDS,
     PACKAGES,
     PORT,
+    fleet_isolation,  # noqa: F401  (autouse: ledger balance, federation reset)
+)
+
+from hack.fleet_torch import (
+    BUCKET,
+    LEADER_KILL_BYTES,
+    LEADER_KILL_SEED,
     ConvertSink,
     Origin,
-    fleet_isolation,  # noqa: F401  (autouse: ledger balance, federation reset)
+    cache_env,
+    counter,
+    fleet_config,
     http_get,
+    leader_kill,
+    leader_kill_failures,
     payload,
     publish_job,
     stored,
     wait,
-    worker_env,
 )
 
 
 @pytest.fixture(params=PACKAGES, ids=PACKAGE_IDS)
 def pkg(request):
     return request.param
-
-
-def counter(pkg, name: str) -> float:
-    return pkg.metrics.GLOBAL.snapshot().get(name, 0)
 
 
 # -- content identity ------------------------------------------------------------
@@ -520,26 +526,6 @@ def test_debug_snapshot_reflects_active_plane(pkg, tmp_path):
 # -- the fleet walks --------------------------------------------------------------
 
 
-def cache_env(pkg, broker, s3, base_dir, **extra):
-    env = worker_env(
-        pkg, broker, s3, base_dir, BUCKET=BUCKET, PREFETCH="1", WATCHDOG_STALL_S="600",
-        MAX_JOB_RETRIES="50", RETRY_DELAY="0.3", RETRY_DELAY_CAP="1.0",
-        S3_MULTIPART_THRESHOLD=str(256 * 1024), S3_PART_SIZE=str(256 * 1024),
-        CACHE_DIR=os.path.join(base_dir, "shared-cache"), SINGLEFLIGHT_LEASE_S="2.0",
-        SINGLEFLIGHT_WAIT_S="120",
-    )
-    env.update(extra)
-    return env
-
-
-def fleet_config(pkg, workers=2, **overrides):
-    base = dict(workers=workers, heartbeat_s=0.2, stall_s=30.0, restart_backoff_s=0.1,
-                restart_backoff_cap_s=0.5, start_grace_s=40.0, drain_s=10.0,
-                scrape_timeout_s=2.0)
-    base.update(overrides)
-    return pkg.fleet.FleetConfig(**base)
-
-
 def flash_crowd(pkg, body, tmp_path):
     with pkg.stub.S3Stub(pkg.creds) as s3, pkg.amqp_server.AmqpServerStub() as broker, \
             Origin({"/hot.mp4": body}, rate_bps=768 * 1024) as origin:
@@ -600,69 +586,40 @@ def test_e2e_single_flight_flash_crowd_one_origin_fetch(tmp_path):
     assert port["cache_enabled"] and port["cache_has_entry"]
 
 
-def leader_kill(pkg, body, tmp_path):
-    with pkg.stub.S3Stub(pkg.creds) as s3, pkg.amqp_server.AmqpServerStub() as broker, \
-            Origin({"/hot.mp4": body}, rate_bps=1536 * 1024) as origin:
-        supervisor = pkg.fleet.FleetSupervisor(
-            fleet_config(pkg, stall_s=2.0),
-            worker_env=cache_env(
-                pkg, broker, s3, str(tmp_path / pkg.name),
-                # dies on the 17th 256 KiB chunk write (~4 MB in); only an
-                # elected leader writes, and the promoted successor resumes
-                # the journal with fewer than 16 chunks left
-                FAILPOINT_SPEC="segments.pwrite=kill:1:16", HTTP_SEGMENTS="2",
-                HTTP_SEGMENT_MIN_MB="1", SINGLEFLIGHT_LEASE_S="1.0", WATCHDOG_STALL_S="60",
-            ),
-        )
-        sink = health = None
-        try:
-            supervisor.start()
-            wait(lambda: all(s["ready"] for s in supervisor.snapshot()["slots"]), 60.0,
-                 "both real workers ready")
-            sink = ConvertSink(pkg, broker)
-            contexts = {f"chaos-{index}": publish_job(pkg, broker, f"chaos-{index}",
-                                                      f"{origin.url}/hot.mp4")
-                        for index in range(4)}
-            wait(lambda: {e[0] for e in sink.snapshot()} >= set(contexts), 180.0,
-                 "the crowd to complete through the leader's death")
-            foreign = [e for e in sink.snapshot()
-                       if e[0] in contexts and e[1] != contexts[e[0]].trace_id]
-            assert not foreign, f"trace-id continuity broken: {foreign}"
-            health = pkg.fleet.FleetHealthServer(supervisor, 0, "127.0.0.1").start()
-            federated = wait(lambda: http_get(health.port, "/metrics/federate")[1], 30.0,
-                             "the fleet exposition").decode()
-            promotions = sum(float(line.rsplit(" ", 1)[1]) for line in federated.splitlines()
-                             if line.startswith("downloader_singleflight_promotions_total"))
-            wait(lambda: not s3.list_multipart_uploads(), 30.0,
-                 "dangling multipart uploads to be reclaimed")
-            return {
-                "restarted": counter(pkg, "fleet_worker_restarts") >= 1,
-                "promoted": promotions >= 1,
-                "objects": stored(s3),
-                "converts": sink.converts(origin.url),
-                "dangling": s3.list_multipart_uploads(),
-            }
-        finally:
-            if health is not None:
-                health.stop()
-            if sink is not None:
-                sink.close()
-            supervisor.drain()
+
+@pytest.fixture(scope="module")
+def leader_kills(tmp_path_factory):
+    """Each package's leader-kill walk (``hack/fleet_torch.py``), run
+    once per module on the same payload: the per-package tests and the
+    parity test read the same outcomes."""
+    body = payload(LEADER_KILL_BYTES, LEADER_KILL_SEED)
+    outcomes = {}
+
+    def outcome(pkg):
+        if pkg.name not in outcomes:
+            outcomes[pkg.name] = leader_kill(pkg, body, tmp_path_factory.mktemp(pkg.name))
+        return outcomes[pkg.name]
+
+    outcome.body = body
+    return outcome
 
 
-def test_e2e_chaos_sigkill_coalesce_leader_promotes_follower(tmp_path):
+def test_e2e_chaos_sigkill_coalesce_leader_recovers(pkg, leader_kills):
     """The elected coalesce leader is SIGKILLed mid-fetch by a seeded
-    failpoint in each package's fleet: its lease goes stale, a follower
+    failpoint in the package's fleet: its lease goes stale, a follower
     promotes itself and re-leads from the journaled spans, every job
     completes under its original trace id, the supervisor restarts the
-    dead worker, and no multipart upload is left open. Both packages
-    store the same objects and publish the same Converts."""
-    body = payload(6 * 1024 * 1024, 21)
-    port, ref = (leader_kill(pkg, body, tmp_path) for pkg in PACKAGES)
+    dead worker, and no multipart upload is left open. The port's case
+    is the failpoint matrix's SIGKILL-mid-coalesce cell."""
+    assert leader_kill_failures(leader_kills(pkg), leader_kills.body) == []
+
+
+def test_e2e_chaos_sigkill_coalesce_leader_promotes_follower(leader_kills):
+    """Both packages' leader-kill walks store the same objects, publish
+    the same Converts and end in the same state."""
+    port, ref = (leader_kills(pkg) for pkg in PACKAGES)
     assert port == ref
-    assert port["restarted"] and port["promoted"]
-    assert sorted(port["objects"].values()) == [body] * 4
-    assert port["dangling"] == []
+    assert leader_kill_failures(port, leader_kills.body) == []
 
 
 # -- the port's one-process serve() with the data plane --------------------------
