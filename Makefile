@@ -13,7 +13,7 @@ CUDA_IMAGE  ?= downloader-tpu-torch
 
 .PHONY: all dep build native wheel docker-build fmt fmt-fix analyze analyze-full test bench clean \
 	dep-torch native-torch kernel-torch build-torch analyze-torch docker-build-cuda \
-	failpoints-torch profile-torch
+	failpoints-torch profile-torch bench-torch
 
 all: dep native build
 
@@ -101,7 +101,7 @@ docker-build:
 # gofmt analogue (reference Makefile:35-37). No third-party formatter is
 # assumed; hack/fmt.py enforces whitespace/newline/tab hygiene with the
 # stdlib tokenizer. `make fmt` checks, `make fmt-fix` rewrites.
-FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py hack/pipeline_torch.py hack/fleet_torch.py hack/failpoint_matrix_torch.py hack/profile_artifacts_torch.py
+FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py hack/pipeline_torch.py hack/fleet_torch.py hack/failpoint_matrix_torch.py hack/profile_artifacts_torch.py bench_torch.py bench_digest_torch.py __graft_entry_torch__.py
 
 fmt:
 	$(PYTHON) hack/fmt.py $(FMT_PATHS)
@@ -155,6 +155,11 @@ test:
 
 bench:
 	$(PYTHON) bench.py
+
+# the port's end-to-end benchmark, bench.py's twin; its digest arm needs
+# a CUDA card (BENCH_DIGEST=0 runs the host arms alone)
+bench-torch:
+	$(PYTHON) bench_torch.py
 
 clean:
 	rm -rf $(BINDIR) build dist *.egg-info

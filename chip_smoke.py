@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet, its analyzer's recorders, its installed forms and its chaos and profiling tooling on one card.
+"""Drive the PyTorch/CUDA port's piece-verification path, one HTTP job, one torrent job, the queue-driven daemon, its crash-only fleet, its analyzer's recorders, its installed forms, its chaos and profiling tooling and its benchmark on one card.
 
 Run from the root of a checkout, on a host with an NVIDIA H100:
 
@@ -47,7 +47,12 @@ native RC4 core. The ``tooling`` phase runs the port's failpoint
 matrix and profiling artifacts as CI runs them and then one torrent job
 whose peer-wire reads and writes fail at a seeded rate: both sites must
 inject, every piece must be verified on the card and the stored object
-must equal the payload. The last line is
+must equal the payload. The ``bench`` phase runs the port's benchmark
+twins: ``__graft_entry_torch__``'s entry and one-card dry run,
+``bench_digest_torch.py`` (the kernel against hashlib at three batch
+shapes) and ``bench_torch.py`` with its workload cut to a few minutes,
+every arm on; it checks each arm's contract numbers and counts the
+kernel's launches in each child. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and the
 script exits non-zero without it. Without a CUDA device it exits 2.
 """
@@ -191,6 +196,28 @@ TOOLING_SEED = 9
 TOOLING_PROFILE_JOBS = 300
 TOOLING_TIMEOUT_S = 600  # each tool; about a minute expected
 MATRIX_FINGERPRINTS = {509: "8c90e617660b966e", 1307: "2a2a3d381bf2bc21", 9001: "727a423415f816c3"}
+# the bench phase: the port's benchmark twins. bench_torch.py runs with
+# its workload cut to a few minutes (PERF.md §4 lists the cut); every
+# knob it does not name stays at bench.py's default
+BENCH_KNOBS = {
+    "BENCH_JOBS": "12", "BENCH_MB": "16", "BENCH_REPEATS": "1", "BENCH_SLICES": "2",
+    "BENCH_ABLATION_REPEATS": "1", "BENCH_PIPELINE_REPEATS": "1",
+    "BENCH_SEGMENTED_REPEATS": "1", "BENCH_MULTI_REPEATS": "1", "BENCH_SMALL_WAVES": "1",
+    "BENCH_PROFILE_JOBS": "300",
+}
+BENCH_TIMEOUT_S = 900  # bench_torch.py at the cut; a few minutes expected
+BENCH_DIGEST_SHAPES = ((256, 1024), (256, 128), (16, 1024))  # bench_digest.py's main()
+# the metrics of bench.py's report with every arm on
+BENCH_METRICS = {
+    "job_overhead_latency_ms", "throughput_pairs", "ablation", "pipeline_overlap",
+    "segmented_vs_single", "multi_source", "small_object_overhead", "overload_shedding",
+    "watchdog_overhead", "telemetry_overhead", "canary_probe", "profile_attribution",
+    "fleet_chaos", "fleet_scrape", "flow_accounting", "single_flight", "digest_kernel",
+}
+# the fleet chaos arm's workers take PREFETCH=4: the deliveries a
+# SIGKILLed worker held unacked are redelivered (at-least-once), and each
+# may publish its Convert a second time
+BENCH_FLEET_PREFETCH = 4
 # what a child job or worker takes from this process's environment: the
 # host's own variables and no knob of the port, so every knob a phase
 # does not set stays at its default
@@ -2920,6 +2947,96 @@ def phase_tooling(payload: bytes, workdir: str, card: str, rehearse: bool = Fals
     return fields
 
 
+def _bench_child(argv: list[str], **knobs: str) -> tuple[float, str, str]:
+    """A benchmark script in a child process from the checkout's root;
+    it must exit 0. Returns its wall seconds, stdout and stderr."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=child_env(**knobs), capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - start
+    assert done.returncode == 0, (
+        f"{argv[0]} exited {done.returncode}: {done.stdout[-2000:]} {done.stderr[-4000:]}")
+    return seconds, done.stdout, done.stderr
+
+
+def phase_bench(card: str) -> dict:
+    """The port's benchmark twins on the card.
+
+    ``__graft_entry_torch__``: ``entry()``'s function on its example
+    arguments must give hashlib's digests, and ``dryrun_multichip(1)``
+    must count its one deliberate mismatch. ``bench_digest_torch.py``
+    runs as its ``main()``: each of ``BENCH_DIGEST_SHAPES`` must show 0
+    digests that differ from hashlib and a kernel rate. ``bench_torch.py``
+    runs at ``BENCH_KNOBS`` with every arm on: its report must carry
+    every metric of ``bench.py``'s; the fleet chaos arm must complete
+    every job under its trace id with no multipart upload left open and
+    no more duplicate Converts than its killed workers held deliveries;
+    the flow arm's fleet amplification must equal its worker count; the
+    single-flight arm's cache-on amplification must be 1.0; the wedged
+    fan-out must stay within its budget; the canary must detect its
+    corruption; the digest arm must agree with hashlib. Launches are
+    counted by step: the graft entry points in this process, each digest
+    shape in its child (``cuda_launches``)."""
+    from bench_digest_torch import digest_line
+
+    import __graft_entry_torch__ as graft
+
+    phase_start = time.perf_counter()
+    sha1_cuda.launches = 0
+    fn, (blocks, nblocks) = graft.entry()
+    got = digests_to_bytes(fn(blocks, nblocks).cpu().numpy(), blocks.shape[2])
+    assert got == [hashlib.sha1(bytes([i]) * (1024 + i)).digest() for i in range(8)], got
+    graft.dryrun_multichip(1)
+    graft_launches = sha1_cuda.launches
+
+    digest_s, out, _ = _bench_child(["bench_digest_torch.py"])
+    shapes = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert [(s["piece_kb"], s["batch"]) for s in shapes] == list(BENCH_DIGEST_SHAPES), shapes
+    for shape in shapes:
+        assert shape["cuda_digest_mismatches"] == 0 and shape["cuda_GBps"], shape
+        assert shape["hashlib_GBps"] and shape["cuda_launches"] > 0, shape
+
+    bench_s, out, _ = _bench_child(["bench_torch.py"], **BENCH_KNOBS)
+    report = json.loads(out.splitlines()[-1])
+    arms = {extra["metric"]: extra for extra in report["extra_metrics"]}
+    assert report["metric"] == "e2e_fetch_upload_MBps" and report["value"] > 0, report
+    assert set(arms) == BENCH_METRICS and len(arms) == len(report["extra_metrics"]), sorted(arms)
+    fleet = arms["fleet_chaos"]
+    assert fleet["completed"] == fleet["jobs"] and fleet["dangling_multiparts"] == 0, fleet
+    assert fleet["duplicate_converts"] <= BENCH_FLEET_PREFETCH * fleet["restarts"], fleet
+    flow = arms["flow_accounting"]
+    assert flow["origin_amplification"] == flow["workers"], flow
+    assert arms["single_flight"]["singleflight_amp"] == 1.0, arms["single_flight"]
+    assert arms["fleet_scrape"]["within_one_timeout_budget"], arms["fleet_scrape"]
+    assert arms["canary_probe"]["detect_s"] is not None, arms["canary_probe"]
+    digest = arms["digest_kernel"]
+    assert digest["cuda_digest_mismatches"] == 0 and digest["cuda_GBps"], digest
+    steps = {"bench_graft": graft_launches}
+    steps.update({f"bench_digest_{s['piece_kb']}x{s['batch']}": s["cuda_launches"] for s in shapes})
+    steps["bench_arm"] = digest["cuda_launches"]
+    fields = dict(
+        clock="host wall clock on the card's machine; kernel times by CUDA events in the children",
+        seconds=time.perf_counter() - phase_start,
+        digest_s=digest_s,
+        digest_shapes=shapes,
+        bench_s=bench_s,
+        knobs=BENCH_KNOBS,
+        line=digest_line(report),
+        fleet_chaos={k: fleet[k] for k in ("jobs", "completed", "elapsed_s", "restart_s",
+                                          "restarts", "duplicate_converts",
+                                          "dangling_multiparts")},
+        single_flight={arm: arms["single_flight"][arm] for arm in ("cache_off", "cache_on")},
+        digest_arm=digest,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+        card=card,
+    )
+    emit("bench", **fields)
+    return fields
+
+
 def nvidia_smi() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3005,6 +3122,7 @@ def main() -> int:
         analysis = phase_analysis(payload[:ANALYSIS_BYTES], workdir, card)
         packaging = phase_packaging(payload, workdir, card)
         tooling = phase_tooling(payload[:TOOLING_BYTES], workdir, card)
+    bench = phase_bench(card)
 
     # the line's times are at the live flush's shape (P=32, B=4097),
     # which most launches of the torrent, daemon and fleet paths take
@@ -3014,7 +3132,7 @@ def main() -> int:
     kernel.update(
         launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
                   + fleet["launches"] + analysis["launches"] + packaging["launches"]
-                  + tooling["launches"]),
+                  + tooling["launches"] + bench["launches"]),
         max_abs_err=max(
             checked["max_abs_err"], main_shape["max_abs_err"], torrent_shapes["max_abs_err"]
         ),

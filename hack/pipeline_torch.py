@@ -1,5 +1,6 @@
 """The PyTorch/CUDA port's hermetic pipeline rig, shared by
-``hack/failpoint_matrix_torch.py`` and ``hack/profile_artifacts_torch.py``.
+``bench_torch.py``, ``hack/failpoint_matrix_torch.py`` and
+``hack/profile_artifacts_torch.py``.
 
 ``Pipeline`` wires ``downloader_tpu_torch``'s ``Daemon`` to a payload
 server and an S3 stub, each in a child process (in-process they would
@@ -101,24 +102,38 @@ def _spawn_server(code: str, *args: str) -> tuple[subprocess.Popen, int]:
 class Pipeline:
     """The port's full hermetic pipeline (payload server, daemon, S3
     stub, Convert sink) wired up and ready to take jobs: the files of
-    ``site`` are the origin, ``payload`` the one every job names."""
+    ``site`` are the origin, ``payload`` the one a job names unless it
+    names another. ``server`` is the origin's (code, extra arguments),
+    by default the plain payload server; ``root`` holds the daemon's
+    working directory (default: the system's temporary directory).
+    ``pipeline`` pins the streaming upload pipeline on or off (None: the
+    environment's default); the other options set the daemon's, the
+    HTTP backend's and the S3 client's knobs of the same names."""
 
     def __init__(
         self,
         concurrency: int,
         prefetch: int,
         site: str,
-        payload: str,
+        payload: str = "payload.mkv",
         multipart_threshold: int | None = None,
         part_size: int | None = None,
         batch_jobs: int | None = None,
+        zero_copy: bool = True,
+        pipeline: bool | None = None,
+        part_workers: int | None = None,
+        server: tuple[str, tuple[str, ...]] | None = None,
+        http_segments: int | None = None,
+        quota_jobs: int | None = None,
+        root: str | None = None,
     ):
         self.token = CancelToken()
         self.payload = payload
-        self.workdir = tempfile.mkdtemp(prefix="pipeline-torch-")
+        self.workdir = tempfile.mkdtemp(prefix="pipeline-torch-", dir=root)
         self.httpd = self.stub_proc = None
         try:
-            self.httpd, http_port = _spawn_server(_PAYLOAD_SERVER, site)
+            server_code, server_args = server or (_PAYLOAD_SERVER, ())
+            self.httpd, http_port = _spawn_server(server_code, site, *server_args)
             self.base_url = f"http://127.0.0.1:{http_port}"
             self.stub_proc, stub_port = _spawn_server(_STUB_SERVER, REPO)
             self.config = Config(
@@ -130,13 +145,22 @@ class Pipeline:
             )
             if batch_jobs is not None:
                 self.config.batch_jobs = batch_jobs
+            if quota_jobs is not None:
+                self.config.quota_tenant_jobs = quota_jobs
             connect = build_connection_factory(self.config)
             self.client = QueueClient(self.token, connect, drain_timeout=10.0)
             self.client.set_prefetch(self.config.prefetch)
             dispatcher = DispatchClient(
                 self.token,
                 self.workdir,
-                [HTTPBackend(progress_interval=5.0, timeout=120.0)],
+                [
+                    HTTPBackend(
+                        progress_interval=5.0,
+                        timeout=120.0,
+                        zero_copy=zero_copy,
+                        segments=http_segments,
+                    )
+                ],
             )
             client_kwargs = {}
             if multipart_threshold is not None:
@@ -148,9 +172,12 @@ class Pipeline:
                 S3Client(
                     f"127.0.0.1:{stub_port}",
                     Credentials("bench", "bench"),
+                    zero_copy=zero_copy,
                     **client_kwargs,
                 ),
             )
+            if pipeline is not None:
+                self.uploader.configure_pipeline(pipeline, part_workers=part_workers)
             daemon = Daemon(
                 self.token, self.client, dispatcher, self.uploader, self.config
             )
@@ -184,11 +211,17 @@ class Pipeline:
             self.close()
             raise
 
-    def publish_job(self, index: int, media_id: str | None = None) -> None:
+    def publish_job(
+        self,
+        index: int,
+        media_id: str | None = None,
+        payload: str | None = None,
+        headers: dict | None = None,
+    ) -> None:
         body = Download(
             media=Media(
                 id=media_id or f"bench-{index}",
-                source_uri=f"{self.base_url}/{self.payload}",
+                source_uri=f"{self.base_url}/{payload or self.payload}",
             )
         ).marshal()
         self.producer.publish(
@@ -197,9 +230,10 @@ class Pipeline:
                 self.config.consume_topic, index % self.client._num_queues
             ),
             body,
+            headers=headers or {},
         )
 
-    def wait_converts(self, n: int, timeout: float) -> None:
+    def wait_converts(self, n: int, timeout: float = 600.0) -> None:
         deadline = time.monotonic() + timeout
         while len(self.converts) < n:
             if time.monotonic() > deadline:
@@ -257,10 +291,11 @@ def run_profile_arm(
     jobs: int,
     concurrency: int,
     artifact_dir: str | None = None,
+    root: str | None = None,
 ) -> dict:
     """N small jobs (``site``'s ``tiny.bin``) through the port's
-    pipeline with its sampling profiler live at a 5 ms tick and heap
-    snapshots on. Reports the share of samples attributed to named
+    pipeline (its working directory under ``root``) with its sampling
+    profiler live at a 5 ms tick and heap snapshots on. Reports the share of samples attributed to named
     roles, per-stage CPU shares over the daemon's roles, the named
     locks that waited, and how many stacks each profile mode holds.
     ``artifact_dir`` also receives the collapsed CPU stacks
@@ -278,7 +313,9 @@ def run_profile_arm(
     }
     profiler.start()
     profiling_mod.ROLES.register_current("bench-harness")
-    pipeline = Pipeline(concurrency, max(concurrency, 32), site, payload="tiny.bin")
+    pipeline = Pipeline(
+        concurrency, max(concurrency, 32), site, payload="tiny.bin", root=root
+    )
     start = time.monotonic()
     try:
         profiling_mod.ROLES.register_thread(pipeline.runner, "bench-harness")
