@@ -101,7 +101,7 @@ docker-build:
 # gofmt analogue (reference Makefile:35-37). No third-party formatter is
 # assumed; hack/fmt.py enforces whitespace/newline/tab hygiene with the
 # stdlib tokenizer. `make fmt` checks, `make fmt-fix` rewrites.
-FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py hack/pipeline_torch.py hack/fleet_torch.py hack/failpoint_matrix_torch.py hack/profile_artifacts_torch.py bench_torch.py bench_digest_torch.py __graft_entry_torch__.py
+FMT_PATHS := downloader_tpu downloader_tpu_torch tests bench.py __graft_entry__.py chip_smoke.py hack/build_torch_pyz.py hack/pipeline_torch.py hack/fleet_torch.py hack/failpoint_matrix_torch.py hack/profile_artifacts_torch.py hack/multicard_torch.py bench_torch.py bench_digest_torch.py __graft_entry_torch__.py
 
 fmt:
 	$(PYTHON) hack/fmt.py $(FMT_PATHS)

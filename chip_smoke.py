@@ -14,7 +14,11 @@ it, and prints one JSON line per phase. The ``job`` phase then runs
 ``python3 -m downloader_tpu_torch download-once`` on the same payload
 against a loopback origin and the port's S3 stub, three times, and holds
 the stored object against the payload. The ``torrent_shapes`` phase
-times the kernel at the torrent path's shapes (256 KiB pieces), and the
+times the kernel at the torrent path's shapes (256 KiB pieces), the
+``split`` phase runs ``mesh.digest_split`` and ``mesh.verify_split`` at
+the live flush's shape over four shards on the card (and over every
+card when more are visible), held against one unsplit launch and
+hashlib with one launch a shard, and the
 ``torrent`` phase serves the payload from the port's ``Seeder`` and runs
 ``download-once`` of its magnet in a child process, once from nothing
 and once resuming half of the file, counting the kernel's launches
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import ctypes
 import hashlib
 import http.server
@@ -107,11 +112,12 @@ from downloader_tpu_torch.fetch.peerwire import PeerProtocolError
 from downloader_tpu_torch.fetch.pieces import PieceStore
 from downloader_tpu_torch.fetch.seeder import make_torrent
 from downloader_tpu_torch.fetch.swarmstate import _PieceBatch
-from downloader_tpu_torch.parallel import sha1, sha1_cuda
+from downloader_tpu_torch.parallel import mesh, sha1, sha1_cuda
 from downloader_tpu_torch.parallel.engine import DigestEngine
 from downloader_tpu_torch.parallel.pack import (
     H0,
     digests_to_bytes,
+    expected_words,
     max_blocks,
     pack_bytes,
     pack_pieces,
@@ -1083,6 +1089,113 @@ def phase_torrent_shapes(payload: bytes, cost: dict) -> dict:
     return {"max_abs_err": worst, "shapes": shapes}
 
 
+@contextlib.contextmanager
+def recorded_launches():
+    """Record every launch made inside the block as (input device,
+    output device, lanes): the kernel wrapper's on a card and the plain
+    version's on the host. ``sha1_states`` looks both up at each call;
+    ``sha1_cuda.launches`` keeps its meaning."""
+    seen: list = []
+    kernel, plain = sha1_cuda.sha1_batch_cuda, sha1.sha1_states
+
+    def recorded(inner):
+        def wrapper(blocks, nblocks):
+            states = inner(blocks, nblocks)
+            seen.append((str(blocks.device), str(states.device), blocks.shape[2]))
+            return states
+
+        return wrapper
+
+    sha1_cuda.sha1_batch_cuda, sha1.sha1_states = recorded(kernel), recorded(plain)
+    try:
+        yield seen
+    finally:
+        sha1_cuda.sha1_batch_cuda, sha1.sha1_states = kernel, plain
+
+
+def split_check(pieces: list[bytes], devices: list, rng: np.random.Generator) -> dict:
+    """``mesh.digest_split`` and ``mesh.verify_split`` of ``pieces``
+    over ``devices``: the split's states must equal one unsplit
+    ``sha1_states`` on ``devices[0]`` and hashlib byte for byte; with one
+    mismatch planted at a seeded lane of each non-empty shard,
+    ``verify_split`` must refuse exactly those lanes and count one per
+    shard. Each call must launch once per non-empty shard, on that
+    shard's device, with that shard's lanes. Returns the shape, the
+    shards and the split's launches by device (the unsplit launch, a
+    comparison, is not among them)."""
+    count = len(pieces)
+    pinned = devices[0].type == "cuda"
+    raw = torch.empty((count, max_blocks(pieces) * 64), dtype=torch.uint8, pin_memory=pinned)
+    _, counts = pack_bytes(pieces, out=raw.numpy())
+    nblocks = torch.from_numpy(counts)
+    want = [hashlib.sha1(piece).digest() for piece in pieces]
+    whole = sha1_cuda.sha1_states(
+        to_gpu_layout(raw.to(devices[0])), nblocks.to(devices[0])
+    ).cpu()
+    shards = [
+        (device, lo, hi) for device, (lo, hi) in zip(devices, mesh._shards(count, devices))
+        if hi > lo
+    ]
+    planted = {int(rng.integers(lo, hi)) for _, lo, hi in shards}
+    expected = expected_words(want)
+    for lane in planted:
+        expected[lane] ^= 1
+    with recorded_launches() as digest_launches:
+        states = mesh.digest_split(raw, nblocks, devices)
+    with recorded_launches() as verify_launches:
+        ok, mismatches = mesh.verify_split(
+            raw, nblocks, torch.from_numpy(expected.view(np.int32)), devices
+        )
+    assert np.array_equal(as_uint32(states), as_uint32(whole)), f"P={count}: split != unsplit"
+    assert digests_to_bytes(states.numpy(), count) == want, f"P={count}: split != hashlib"
+    assert mismatches == len(shards), (count, mismatches, len(shards))
+    assert ok.tolist() == [lane not in planted for lane in range(count)], f"P={count}: ok mask"
+    wanted = [(str(device), str(device), hi - lo) for device, lo, hi in shards]
+    assert digest_launches == wanted, (count, digest_launches, wanted)
+    assert verify_launches == wanted, (count, verify_launches, wanted)
+    by_device = Counter(device for device, _, _ in digest_launches + verify_launches)
+    return {
+        "P": count,
+        "B": raw.shape[1] // 64,
+        "shards": [hi - lo for _, lo, hi in shards],
+        "launches": len(digest_launches) + len(verify_launches),
+        "launches_by_device": dict(sorted(by_device.items())),
+        "mismatches": mismatches,
+        "equal_unsplit": True,
+        "equal_hashlib": True,
+    }
+
+
+def phase_split(payload: bytes) -> dict:
+    """The split verify step on the one card the smoke runs on, at the
+    live flush's shape (32 pieces of 256 KiB, B=4097): ``digest_split``
+    and ``verify_split`` over four shards placed on ``cuda:0``, and over
+    every visible card when there are more, each held against the
+    unsplit launch and hashlib with one launch per shard
+    (``split_check``)."""
+    phase_start = time.perf_counter()
+    pieces = [
+        payload[i : i + TORRENT_PIECE]
+        for i in range(0, TORRENT_SHAPES[0] * TORRENT_PIECE, TORRENT_PIECE)
+    ]
+    rng = np.random.default_rng(len(pieces))
+    layouts = {"cuda:0 x4": [torch.device("cuda", 0)] * 4}
+    if torch.cuda.device_count() > 1:
+        layouts["every card"] = [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())
+        ]
+    checks = {name: split_check(pieces, devices, rng) for name, devices in layouts.items()}
+    steps = {f"split {name}": check["launches"] for name, check in checks.items()}
+    fields = dict(
+        seconds=time.perf_counter() - phase_start,
+        checks=checks,
+        launches=sum(steps.values()),
+        launches_by_step=steps,
+    )
+    emit("split", **fields)
+    return fields
+
+
 def process_start_epoch() -> float:
     """When this process started, in epoch seconds (from /proc, to the
     kernel's clock tick)."""
@@ -1095,7 +1208,8 @@ def process_start_epoch() -> float:
 
 def counted_job(report_path: str, argv: list[str], rehearse: bool,
                 launch_log: str | None = None, record: bool = False,
-                check_batch: bool = False, cuda_engine: bool = False) -> int:
+                check_batch: bool = False, cuda_engine: bool = False,
+                cpu_shards: int = 0) -> int:
     """Run ``downloader_tpu_torch`` with ``argv`` in this process, the
     job's own, and write what the digest engine and the card did to
     ``report_path`` once ``cli.main`` returns: for ``download-once`` when
@@ -1136,7 +1250,13 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     (that cell too) the default engine is
     ``DigestEngine(backend="cuda")``: every batch goes to the card, the
     few pieces a dropped connection's flush holds included, which
-    ``auto`` would price to hashlib."""
+    ``auto`` would price to hashlib.
+
+    The report's ``launches_by_card`` splits the launches by the device
+    they ran on, and each device's by step. With ``cpu_shards`` (the
+    multi-card tool's CPU mode, for the tests) the default engine is
+    ``DigestEngine(backend="cuda")`` over that many CPU shards, the plain
+    version's calls count as its launches and no profiler runs."""
     from contextlib import nullcontext
 
     from torch.autograd import DeviceType
@@ -1153,11 +1273,14 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         engine_module._default = DigestEngine(backend="hashlib")
     elif cuda_engine:
         engine_module._default = DigestEngine(backend="cuda")
+    elif cpu_shards:
+        engine_module._default = DigestEngine(backend="cuda", device=["cpu"] * cpu_shards)
     if record and RECORDERS is None:
         raise RuntimeError("--record needs the recorders installed before the port's imports")
     counts = {"live": 0, "resume": 0, "calibration": 0, "concurrent": 0, "check": 0,
               "resume_device_batches": 0, "below_min_batch": [0, 0],
-              "resumed": [], "verify_window": [float("inf"), float("-inf")]}
+              "resumed": [], "verify_window": [float("inf"), float("-inf")], "plain": 0}
+    by_card: dict = {}
     # line-buffered: each line reaches the file as it is written
     log_sink = open(launch_log, "a", buffering=1) if launch_log else None
     # host seconds and calls of the layers under the swarm: the resume,
@@ -1196,6 +1319,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     use_device = DigestEngine._use_device
     verify = DigestEngine.verify_pieces
     launch = sha1_cuda.sha1_batch_cuda
+    plain = sha1.sha1_states
     # the step a thread is in: the daemon runs jobs on several threads, so
     # a launch or a device batch is the resume's (or the calibration's)
     # only if its own thread is inside resume_existing (or the calibration)
@@ -1217,7 +1341,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         # a job's files live under <base dir>/<media id>/
         return os.path.basename(os.path.dirname(store.files[0][0])) if store.files else ""
 
-    def counted_launch(blocks, nblocks):
+    def counted_launch(blocks, nblocks, launch=launch):
         if log_sink is None or not blocks.is_cuda:
             states = launch(blocks, nblocks)
             t0 = t1 = kernel_ms = None
@@ -1234,6 +1358,10 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
             kernel_ms = begin.elapsed_time(end)
         with layers_lock:
             counts[step()] += 1
+            card = by_card.setdefault(str(blocks.device), {})
+            card[step()] = card.get(step(), 0) + 1
+            if launch is plain:
+                counts["plain"] += 1
         log_line(step=step(), job=getattr(local, "job", ""), t0=t0, t1=t1, kernel_ms=kernel_ms)
         return states
 
@@ -1294,9 +1422,12 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
     DigestEngine.verify_pieces = stamped_verify
     # sha1_states looks the wrapper up in its module at each call
     sha1_cuda.sha1_batch_cuda = counted_launch
+    if cpu_shards:
+        # the plain version stands in for the kernel on the host shards
+        sha1.sha1_states = lambda blocks, nblocks: counted_launch(blocks, nblocks, plain)
     sha1_cuda.launches = 0
     log_line(life_start=time.time(), pid=os.getpid(), process_started=process_start_epoch())
-    profiled = not rehearse and log_sink is None and not record
+    profiled = not rehearse and log_sink is None and not record and not cpu_shards
     profiler = profile(activities=[ProfilerActivity.CUDA]) if profiled else nullcontext()
     stamps = {"started": time.time()}
     with profiler:
@@ -1319,7 +1450,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
                     "count": event.count,
                 }
     engine = engine_module._default
-    total = sha1_cuda.launches
+    total = sha1_cuda.launches + counts["plain"]
     assert total == sum(
         counts[step] for step in ("live", "resume", "calibration", "concurrent", "check")
     ), (total, counts)
@@ -1335,6 +1466,7 @@ def counted_job(report_path: str, argv: list[str], rehearse: bool,
         "launches_live": counts["live"],
         "launches_concurrent": counts["concurrent"],
         "launches_check": counts["check"],
+        "launches_by_card": by_card,
         "resume_device_batches": counts["resume_device_batches"],
         "below_min_batch": dict(zip(("batches", "pieces"), counts["below_min_batch"])),
         "layers_s": {name: {"calls": n, "s": s} for name, (n, s) in layers.items()},
@@ -1503,11 +1635,13 @@ def claim_pool_s(info: dict, workdir: str, flush_pieces: int) -> float:
 
 def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
                  record: bool = False, script: str | None = None,
-                 check_batch: bool = False, cuda_engine: bool = False) -> dict:
+                 check_batch: bool = False, cuda_engine: bool = False,
+                 cpu_shards: int = 0) -> dict:
     """One ``download-once`` of the magnet in a child interpreter under
     ``counted_job`` (``record``: under the port's recorders;
     ``check_batch``: with the kernel batch check after the job;
-    ``cuda_engine``: every batch on the card), run as
+    ``cuda_engine``: every batch on the card; ``cpu_shards``: every
+    batch split over that many CPU shards), run as
     ``script`` (a copy of this file; this file by default): (exit code,
     stdout, stderr, wall seconds, report, span ms by name)."""
     report_path = os.path.join(base_dir, "report.json")
@@ -1516,7 +1650,8 @@ def _torrent_job(magnet: str, base_dir: str, env: dict, rehearse: bool,
         sys.executable, script or os.path.abspath(__file__), "--counted-job", report_path,
         *(["--rehearse"] if rehearse else []), *(["--record"] if record else []),
         *(["--check-batch"] if check_batch else []),
-        *(["--cuda-engine"] if cuda_engine else []), "--",
+        *(["--cuda-engine"] if cuda_engine else []),
+        *(["--cpu-shards", str(cpu_shards)] if cpu_shards else []), "--",
         "--trace-out", trace_out, "download-once", "--id", "episode-1",
         "--url", magnet, "--base-dir", base_dir,
     ]
@@ -3053,13 +3188,14 @@ def main() -> int:
         # the child of the torrent, daemon, fleet and analysis phases:
         # python3 chip_smoke.py --counted-job REPORT [--launch-log LOG]
         # [--rehearse] [--record] [--check-batch] [--cuda-engine]
-        # -- <downloader_tpu_torch arguments>
+        # [--cpu-shards N] -- <downloader_tpu_torch arguments>
         split = sys.argv.index("--")
         options = sys.argv[3:split]
         launch_log = options[options.index("--launch-log") + 1] if "--launch-log" in options else None
+        shards = int(options[options.index("--cpu-shards") + 1]) if "--cpu-shards" in options else 0
         return counted_job(sys.argv[2], sys.argv[split + 1 :], "--rehearse" in options, launch_log,
                            "--record" in options, "--check-batch" in options,
-                           "--cuda-engine" in options)
+                           "--cuda-engine" in options, shards)
     if sys.argv[1:2] == ["--fleet-supervisor"]:
         # the fleet phase's supervisor: python3 chip_smoke.py
         # --fleet-supervisor LIFE_DIR [--rehearse] -- serve --workers N ...
@@ -3111,6 +3247,7 @@ def main() -> int:
         phase_profile(main_path)
         phase_job(payload, workdir, card)
         torrent_shapes = phase_torrent_shapes(payload, cost)
+        split = phase_split(payload)
         torrent = phase_torrent(payload, workdir, card)
         second = rng.bytes(DAEMON_SECOND_BYTES)
         clips = {
@@ -3130,7 +3267,7 @@ def main() -> int:
     live = torrent_shapes["shapes"][f"P{TORRENT_PLAIN_SHAPE}_B{TORRENT_PIECE // 64 + 1}"]
     kernel = dict(KERNEL)
     kernel.update(
-        launches=(main_path["launches"] + torrent["launches"] + daemon["launches"]
+        launches=(main_path["launches"] + split["launches"] + torrent["launches"] + daemon["launches"]
                   + fleet["launches"] + analysis["launches"] + packaging["launches"]
                   + tooling["launches"] + bench["launches"]),
         max_abs_err=max(

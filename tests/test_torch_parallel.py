@@ -741,10 +741,13 @@ def _imported_modules(path):
 def test_port_imports_no_jax_triton_or_reference_package():
     files = sorted((REPO / "downloader_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py"]
-    # the port's chaos and profiling tooling
-    files += [REPO / "hack" / name for name in (
+    # the port's tools (chaos, profiling, several cards), every one of
+    # them, so that the next cannot be left out
+    tools = sorted((REPO / "hack").glob("*_torch.py"))
+    assert {path.name for path in tools} >= {
         "pipeline_torch.py", "fleet_torch.py", "failpoint_matrix_torch.py",
-        "profile_artifacts_torch.py")]
+        "profile_artifacts_torch.py", "multicard_torch.py"}
+    files += tools
     # the port's benchmark twins, which also keep their own copies of
     # what they need from the reference's root scripts
     roots = [REPO / name for name in (

@@ -508,3 +508,44 @@ def test_ack_batch_coalesces_the_same_way():
         results.append((frames, channel.calls, pkg["delivery"].dlq_name("v1.download")))
     assert results[0] == results[1]
     assert results[0][0] == 2 and results[0][2] == "v1.download.dlq"
+
+
+# -- publisher generations (twin of test_queue.py::TestPublisherGeneration) ---
+
+
+def _own_publishers(client) -> list:
+    """Live ``queue-publisher`` threads that run ``client``'s own publish
+    loop: any other client's generations in the process, of either
+    package, have the same name and are not counted."""
+    return [
+        thread for thread in threading.enumerate()
+        if thread.name == "queue-publisher"
+        # Thread keeps its target until run() returns
+        and getattr(getattr(thread, "_target", None), "__self__", None) is client
+    ]
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_no_duplicate_publisher_threads_after_flapping(pkg):
+    if pkg == "port":
+        from downloader_tpu_torch.queue import MemoryBroker, QueueClient
+        from downloader_tpu_torch.utils.cancel import CancelToken
+    else:
+        from downloader_tpu.queue import MemoryBroker, QueueClient
+        from downloader_tpu.utils.cancel import CancelToken
+    broker, token = MemoryBroker(), CancelToken()
+    client = QueueClient(token, broker.connect, supervisor_interval=0.05, drain_timeout=1.0)
+    try:
+        client.consume("t")
+        assert wait_for(lambda: len(_own_publishers(client)) == 1)
+        for _ in range(5):
+            broker.drop_connections()
+            time.sleep(0.15)
+        time.sleep(0.5)  # let stale generations notice and exit
+        assert len(_own_publishers(client)) <= 1
+        # and the surviving generation still publishes
+        assert client.publish("t", b"after-flap", wait=5.0) is True
+        assert len(_own_publishers(client)) == 1
+    finally:
+        token.cancel()
+    assert wait_for(lambda: not _own_publishers(client))

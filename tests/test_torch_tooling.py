@@ -233,6 +233,60 @@ def test_makefile_runs_the_tools_and_formats_them():
         rule = re.search(rf"^{target}:\n\t(.*)$", makefile, re.M)
         assert rule and tool in rule.group(1), target
     fmt_paths = re.search(r"^FMT_PATHS := (.*)$", makefile, re.M).group(1).split()
-    for name in ("pipeline_torch.py", "fleet_torch.py", "failpoint_matrix_torch.py",
-                 "profile_artifacts_torch.py"):
-        assert f"hack/{name}" in fmt_paths, name
+    for path in sorted(HACK.glob("*_torch.py")):
+        assert f"hack/{path.name}" in fmt_paths, path.name
+
+
+# -- the port's dependency-drift gate ------------------------------------------
+
+DEPS_GATE = HACK / "verify-deps-torch.sh"
+
+
+def _run_gate(root: Path) -> subprocess.CompletedProcess:
+    return subprocess.run(["bash", str(root / "hack" / DEPS_GATE.name)], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_deps_gate_passes_on_the_tree():
+    done = _run_gate(REPO)
+    assert done.returncode == 0, done.stdout + done.stderr
+    assert "verify-deps-torch: OK" in done.stdout
+
+
+@pytest.fixture
+def gate_copy(tmp_path):
+    """The gate and the port's sources copied under ``tmp_path``."""
+    import shutil
+
+    (tmp_path / "hack").mkdir()
+    shutil.copy(DEPS_GATE, tmp_path / "hack")
+    shutil.copytree(REPO / "downloader_tpu_torch", tmp_path / "downloader_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    assert _run_gate(tmp_path).returncode == 0
+    return tmp_path
+
+
+@pytest.mark.parametrize("planted, offender", [
+    ("import requests\n", "downloader_tpu_torch/fetch/planted.py:1: disallowed import 'requests'"),
+    ("import torch\n", "downloader_tpu_torch/store/planted.py:1: disallowed import 'torch'"),
+], ids=["third_party_in_fetch", "module_level_torch_in_store"])
+def test_deps_gate_refuses_a_planted_import(gate_copy, planted, offender):
+    package = offender.split("/")[1]
+    (gate_copy / "downloader_tpu_torch" / package / "planted.py").write_text(planted)
+    done = _run_gate(gate_copy)
+    assert done.returncode == 1
+    assert offender in done.stdout
+    assert "OK" not in done.stdout
+
+
+def test_deps_gate_allows_lazy_torch_outside_parallel(gate_copy):
+    (gate_copy / "downloader_tpu_torch" / "store" / "planted.py").write_text(
+        "def card():\n    import torch\n    return torch.cuda.is_available()\n")
+    assert _run_gate(gate_copy).returncode == 0
+
+
+def test_deps_gate_runs_in_a_port_step_naming_a_file_that_exists(steps):
+    port = [step["command"] for step in steps if step["name"].startswith("port ")]
+    gates = [command for command in port if "verify-deps" in command]
+    assert gates == ["bash hack/verify-deps-torch.sh"]
+    assert (REPO / gates[0].split()[-1]).is_file()
