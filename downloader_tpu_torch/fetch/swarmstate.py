@@ -17,6 +17,8 @@ import secrets
 import threading
 import time
 
+import numpy as np
+
 from ..parallel import DigestEngine, default_engine
 from ..utils import get_logger, metrics
 from . import sources as source_accounting
@@ -24,6 +26,65 @@ from .http import TransferError
 from .peerwire import BLOCK_SIZE, PeerProtocolError
 
 log = get_logger("fetch.peer")
+
+
+# The claim pool's masks are packed words: the wire bitfield's bytes
+# (piece 0 the top bit of byte 0) padded to whole 64-bit words. Up to
+# P=32000 a mask is at most 500 words, and numpy keeps the GIL over
+# arrays that small (over more it drops it, as searchsorted and argmax
+# always do): a claim then never lets the worker's other threads in
+# mid-way, to wait for them to hand the GIL back.
+
+
+def _packed(flags, num: int) -> np.ndarray:
+    """``num`` flags (0/1 bytes or bools), piece 0 first, as packed words."""
+    field = np.zeros(-(-num // 64) * 8, np.uint8)
+    field[: -(-num // 8)] = np.packbits(np.frombuffer(flags, np.uint8, num))
+    return field.view(np.uint64)
+
+
+def _bits_of(indices, words: int) -> np.ndarray:
+    """Packed words with the bits of ``indices`` set (those in range)."""
+    field = bytearray(8 * words)
+    for i in indices:
+        if 0 <= i < 64 * words:
+            field[i >> 3] |= 0x80 >> (i & 7)
+    return np.frombuffer(field, np.uint64)
+
+
+def _indices(bits: np.ndarray) -> list[int]:
+    """The pieces set in packed words, ascending (an endgame's few)."""
+    return np.flatnonzero(np.unpackbits(bits.view(np.uint8))).tolist()
+
+
+def _held_bits(conn, valid: np.ndarray) -> np.ndarray:
+    """The pieces ``conn`` holds, packed, by the rule every claim applies
+    (``not conn.bitfield or conn.has_piece(i)``): an empty bitfield or
+    HAVE_ALL holds everything; bits past a short bitfield's end are 0 and
+    bits past P (``valid``, the torrent's pieces) are ignored."""
+    bitfield = conn.bitfield
+    if not bitfield or getattr(conn, "remote_have_all", False):
+        return valid
+    field = bytes(bitfield[: 8 * len(valid)]).ljust(8 * len(valid), b"\0")
+    return np.frombuffer(field, np.uint64) & valid
+
+
+def _pick_rarest(rng: random.Random, pool: np.ndarray, levels: list) -> int:
+    """One draw of ``rng`` among the least available pieces of ``pool``
+    (``levels``: the pieces at each availability, rarest first), the
+    ties in ascending index order as the reference lists them."""
+    for level in levels:
+        ties = pool & level
+        if ties.any():
+            break
+    ones = np.bitwise_count(ties)
+    before = np.cumsum(ones)
+    k = rng.choice(range(int(before[-1])))  # the one draw choice(tie list) makes
+    word = int(np.flatnonzero(before > k)[0])  # searchsorted, argmax drop the GIL
+    k -= int(before[word] - ones[word])
+    bits = np.unpackbits(ties[word : word + 1].view(np.uint8))
+    return 64 * word + int(np.flatnonzero(bits)[k])
+
 
 class _PieceBatch:
     """Downloaded-but-unverified pieces from ONE peer, verified through
@@ -123,9 +184,19 @@ class _SwarmState:
         self._progress = progress
         self._progress_interval = progress_interval
         self._last_tick = time.monotonic()
-        # scan cursor: everything below it is permanently complete, so
-        # claims stay O(total) over the torrent instead of O(n^2)
-        self._scan_start = 0
+        # packed masks (see _packed): the torrent's pieces, the store's
+        # have list as of the bytes it was packed from, the claimed pieces
+        num = store.num_pieces
+        self._valid = _packed(b"\x01" * num, num)
+        self._have_flags, self._have = b"", self._valid
+        self._claimed_bytes = np.zeros(8 * len(self._valid), np.uint8)
+        # rarest-first availability as P counts, kept equal to the sum
+        # of _held's cached masks (conn -> (bitfield, have_all, bits)):
+        # a claim re-reads only the bitfields that changed; _levels are
+        # the pieces at each count, packed, rarest first (None: stale)
+        self._held: dict = {}
+        self._avail = np.zeros(num, np.int32)
+        self._levels: list | None = None
         # multi-source accounting (fetch/sources.py): webseed and peer
         # workers register here so swarm traffic lands on the same
         # per-kind rate/demotion board as the HTTP span scheduler —
@@ -146,6 +217,10 @@ class _SwarmState:
     def unregister(self, conn) -> None:
         with self._lock:
             self._conns.discard(conn)
+            cached = self._held.pop(conn, None)
+            if cached is not None:
+                self._avail -= np.unpackbits(cached[2].view(np.uint8), count=len(self._avail))
+                self._levels = None
 
     def broadcast_have(self, index: int) -> None:
         """Store observer: queue a HAVE for every live outbound
@@ -223,61 +298,62 @@ class _SwarmState:
         the BEP 6 allowed-fast case, where a still-choked peer may be
         asked for exactly those pieces.
 
-        O(pieces × conns) per claim; fine for the handful of
-        connections a job runs (reference effective concurrency is 1)."""
+        A claim costs a few vector operations over P/64 words, and a read
+        of the store's have list; a changed bitfield costs one pass over P."""
         store = self.store
+        num = store.num_pieces
         with self._lock:
-            while self._scan_start < store.num_pieces and store.have[
-                self._scan_start
-            ]:
-                self._scan_start += 1
-            if self._scan_start >= store.num_pieces:
+            flags = bytes(store.have)  # the store's list of bools, a byte each
+            if 0 not in flags:
                 return None  # torrent complete
-            candidates: list[int] = []
-            in_flight: list[int] = []  # claimed by ANOTHER conn, missing, peer has
-            for index in range(self._scan_start, store.num_pieces):
-                if store.have[index]:
-                    self._dup_claims.pop(index, None)
-                    continue
-                if only is not None and index not in only:
-                    continue
-                peer_has = not conn.bitfield or conn.has_piece(index)
-                if index in self._claimed:
-                    # never duplicate a piece this conn itself claimed:
-                    # its unflushed batch may already hold the bytes
-                    if peer_has and self._claimed[index] is not conn:
-                        in_flight.append(index)
-                    continue
-                if peer_has:
-                    candidates.append(index)
-
-            def pick_rarest(indices: list[int]) -> int:
-                avail = {
-                    i: sum(
-                        1
-                        for c in self._conns
-                        if not c.bitfield or c.has_piece(i)
-                    )
-                    for i in indices
-                }
-                best = min(avail.values())
-                return self._rng.choice(
-                    [i for i in indices if avail[i] == best]
-                )
-
-            if candidates:
-                index = pick_rarest(candidates)
+            if flags != self._have_flags:
+                self._have_flags, self._have = flags, _packed(flags, num)
+            for index in [i for i in self._dup_claims if flags[i]]:
+                del self._dup_claims[index]
+            # bring each registered conn's cached bits, and the counts,
+            # up to its bitfield: HAVE, BITFIELD, HAVE_ALL and HAVE_NONE
+            # each install a new one, so an unchanged conn costs a compare
+            for peer in self._conns:
+                bitfield = bytes(peer.bitfield)
+                have_all = getattr(peer, "remote_have_all", False)
+                cached = self._held.get(peer)
+                if cached is not None:
+                    if cached[1] == have_all and cached[0] == bitfield:
+                        continue
+                    self._avail -= np.unpackbits(cached[2].view(np.uint8), count=num)
+                bits = _held_bits(peer, self._valid)
+                self._avail += np.unpackbits(bits.view(np.uint8), count=num)
+                self._held[peer] = (bitfield, have_all, bits)
+                self._levels = None
+            if self._levels is None:
+                self._levels = [_packed(self._avail == count, num)
+                                for count in np.unique(self._avail)]
+            cached = self._held.get(conn)
+            held = cached[2] if cached is not None else _held_bits(conn, self._valid)
+            wanted = held & ~self._have
+            if only is not None:
+                wanted &= _bits_of(only, len(wanted))
+            claimed = self._claimed_bytes.view(np.uint64)
+            pool = wanted & ~claimed
+            if pool.any():
+                index = _pick_rarest(self._rng, pool, self._levels)
                 self._claimed[index] = conn
+                self._claimed_bytes[index >> 3] |= 0x80 >> (index & 7)
                 return index
             # endgame: nothing unclaimed, but this peer could race an
-            # in-flight piece it hasn't already duplicated
+            # in-flight piece (claimed by ANOTHER conn) it hasn't
+            # already duplicated. Never duplicate a piece this conn
+            # itself claimed: its unflushed batch may already hold it
+            in_flight = [
+                i for i in _indices(wanted & claimed) if self._claimed[i] is not conn
+            ]
             fresh = [
                 i
                 for i in in_flight
                 if conn not in self._dup_claims.get(i, ())
             ]
             if fresh:
-                index = pick_rarest(fresh)
+                index = _pick_rarest(self._rng, _bits_of(fresh, len(wanted)), self._levels)
                 self._dup_claims.setdefault(index, set()).add(conn)
                 self.endgame = True
                 return index
@@ -297,7 +373,8 @@ class _SwarmState:
                     dups.discard(owner)
                 if self._claimed.get(index) is not owner:
                     return  # we only held (at most) a duplicate
-            self._claimed.pop(index, None)
+            if self._claimed.pop(index, None) is not None:
+                self._claimed_bytes[index >> 3] &= ~(0x80 >> (index & 7)) & 0xFF
 
     def tick_progress(self) -> None:
         store = self.store

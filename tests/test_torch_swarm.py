@@ -1,7 +1,10 @@
 """The port's BitTorrent engine against the JAX package's, on loopback.
 
 - ``_SwarmState``: claim, release, rarest-first and endgame decisions
-  are the same, with both claim pools' ``_rng`` seeded alike.
+  are the same, with both claim pools' ``_rng`` seeded alike, also over
+  P up to 1000 and conns at every bitfield edge (empty, HAVE_ALL,
+  HAVE_NONE, short, bits past P, replaced by frames); the port's
+  per-conn mask is ``has_piece`` index by index.
 - Swarms across packages: a reference ``Seeder`` serves a port
   ``SwarmDownloader``; a port ``Seeder`` serves a reference one; port
   and reference downloaders complete from each other's listeners, once
@@ -22,20 +25,24 @@ from __future__ import annotations
 import hashlib
 import random
 import shutil
+import sys
 import threading
+import types
 
+import numpy as np
 import pytest
 
 import downloader_tpu.parallel.engine as ref_engine
 import downloader_tpu_torch.parallel.engine as port_engine
 from downloader_tpu.fetch import peer as ref_peer
+from downloader_tpu.fetch import peerwire as ref_peerwire
 from downloader_tpu.fetch import pieces as ref_pieces
 from downloader_tpu.fetch import seeder as ref_seeder
 from downloader_tpu.fetch import swarmstate as ref_swarmstate
 from downloader_tpu.fetch.magnet import parse_magnet as ref_parse_magnet
 from downloader_tpu.fetch.magnet import parse_metainfo as ref_parse_metainfo
 from downloader_tpu.utils.cancel import CancelToken as RefCancelToken
-from downloader_tpu_torch.fetch import peer, pieces, seeder, swarmstate
+from downloader_tpu_torch.fetch import peer, peerwire, pieces, seeder, swarmstate
 from downloader_tpu_torch.fetch.bencode import decode, encode
 from downloader_tpu_torch.fetch.magnet import parse_magnet, parse_metainfo
 from downloader_tpu_torch.utils.cancel import CancelToken
@@ -45,11 +52,11 @@ JOIN_S = 60.0
 PIECE = 16 * 1024
 SEED = 77
 
-PORT = {"name": "port", "peer": peer, "pieces": pieces, "seeder": seeder,
-        "swarmstate": swarmstate, "magnet": parse_magnet, "metainfo": parse_metainfo,
+PORT = {"name": "port", "peer": peer, "peerwire": peerwire, "pieces": pieces,
+        "seeder": seeder, "swarmstate": swarmstate, "magnet": parse_magnet, "metainfo": parse_metainfo,
         "token": CancelToken}
-REF = {"name": "ref", "peer": ref_peer, "pieces": ref_pieces, "seeder": ref_seeder,
-       "swarmstate": ref_swarmstate, "magnet": ref_parse_magnet,
+REF = {"name": "ref", "peer": ref_peer, "peerwire": ref_peerwire, "pieces": ref_pieces,
+       "seeder": ref_seeder, "swarmstate": ref_swarmstate, "magnet": ref_parse_magnet,
        "metainfo": ref_parse_metainfo, "token": RefCancelToken}
 
 
@@ -142,6 +149,194 @@ def test_swarm_state_decisions_match_reference(tmp_path, seed):
     kinds = {d[0] for d in port}
     assert {"claim", "release", "have"} <= kinds
     assert any(d[0] == "claim" and d[3] for d in port), "endgame never reached"
+
+
+def _bits(num: int, indices) -> bytearray:
+    field = bytearray((num + 7) // 8)
+    for i in indices:
+        field[i // 8] |= 0x80 >> (i % 8)
+    return field
+
+
+# every edge a claim's "held by this peer" rule has to get right
+CONN_KINDS = ("empty", "have_all", "have_none", "short", "past_end", "partial", "no_flag")
+
+
+def _edge_conn(pkg, kind: str, num: int, rng: random.Random):
+    """A ``PeerConnection`` of ``pkg`` with no socket (claims read only
+    its bitfield and HAVE_ALL flag), in the state ``kind`` names; or,
+    for ``no_flag``, a ``_StubConn``, which has no such flag."""
+    some = [i for i in range(num) if rng.random() < 0.5]
+    if kind == "no_flag":
+        return _StubConn(num, some)
+    conn = object.__new__(pkg["peerwire"].PeerConnection)
+    conn.bitfield, conn.remote_have_all = {
+        "empty": (b"", False),
+        "have_all": (b"", True),
+        "have_none": (b"\x00", False),
+        # the first half's bytes only: the rest reads 0
+        "short": (bytes(_bits(num, some)[: max(1, num // 16)]), False),
+        # every bit of the last byte set past P, and two bytes beyond
+        "past_end": (bytes(_bits(num, some + list(range(num, -(-num // 8) * 8))))
+                     + b"\xff\xff", False),
+        "partial": (bytes(_bits(num, some)), False),
+    }[kind]
+    return conn
+
+
+def _wire_update(pkg, conn, num: int, rng: random.Random) -> str:
+    """Replace a conn's bitfield as a received frame does: HAVE (through
+    the package's own ``_mark_have``), BITFIELD, HAVE_ALL or HAVE_NONE."""
+    if isinstance(conn, _StubConn):
+        conn.bitfield = bytes(_bits(num, [i for i in range(num) if rng.random() < 0.5]))
+        return "bitfield"
+    frame = rng.choice(("have", "have", "have", "bitfield", "have_all", "have_none"))
+    if frame == "have":
+        pkg["peerwire"].PeerConnection._mark_have(conn, rng.randrange(num + 9))
+    elif frame == "bitfield":
+        conn.bitfield = bytes(_bits(num, [i for i in range(num) if rng.random() < 0.3]))
+    else:
+        conn.bitfield = b"" if frame == "have_all" else b"\x00"
+        conn.remote_have_all = frame == "have_all"
+    return frame
+
+
+def _edge_script(pkg, num: int, conns_n: int, seed: int) -> list:
+    """A seeded script over the edge conns against one package's claim
+    pool: claims with and without ``only``, releases by owners, by
+    strangers and by nobody, direct ``store.have`` writes, bitfields
+    replaced as frames arrive, unregister and register; returns every
+    decision. An unregistered webseed-like source claims too, so even
+    one registered conn meets endgame."""
+    store = types.SimpleNamespace(num_pieces=num, have=[False] * num)
+    script = random.Random(seed)
+    for i in range(num):
+        store.have[i] = script.random() < 0.25  # a resume found these
+    swarm = pkg["swarmstate"]._SwarmState(store, lambda p: None, 1.0)
+    swarm._rng = random.Random(seed + 1)
+    offset = script.randrange(len(CONN_KINDS))
+    conns = [_edge_conn(pkg, CONN_KINDS[(offset + k) % len(CONN_KINDS)], num, script)
+             for k in range(conns_n)]
+    conns.append(_StubConn(0, ()))  # the webseed: b"" holds everything; never registered
+    live = set(range(conns_n))
+    for k in live:
+        swarm.register(conns[k])
+    decisions: list = []
+    held: list[tuple[int, int]] = []
+    for _ in range(4 * num + 80):
+        who = script.randrange(len(conns))
+        action = script.random()
+        if action < 0.5:
+            only = None
+            if script.random() < 0.15:  # allowed-fast grants: any 32-bit index
+                only = {script.randrange(-2, num + 8) for _ in range(script.randrange(6))}
+                missing = [i for i in range(num) if not store.have[i]]
+                if missing and script.random() < 0.7:
+                    only.add(script.choice(missing))
+            index = swarm.claim(conns[who], only=only)
+            label = "WAIT" if index is swarm.WAIT else index
+            decisions.append(("claim", who, only is not None, label, swarm.endgame))
+            if isinstance(index, int):
+                held.append((index, who))
+        elif action < 0.58 and held:
+            index, owner = held.pop(script.randrange(len(held)))
+            stranger = script.random() < 0.5
+            by = conns[(owner + 1) % len(conns)] if stranger else conns[owner]
+            swarm.release(index, None if script.random() < 0.1 else by)
+            decisions.append(("release", owner, index, stranger))
+        elif action < 0.75 and held:
+            index, _ = held.pop(script.randrange(len(held)))
+            store.have[index] = True  # a verified write lands
+            decisions.append(("have", index))
+        elif action < 0.77:
+            store.have[script.randrange(num)] = True
+        elif action < 0.9 and who < conns_n:
+            decisions.append(("frame", who, _wire_update(pkg, conns[who], num, script)))
+        elif who < conns_n:
+            if who in live and len(live) > 1:
+                swarm.unregister(conns[who])
+                live.discard(who)
+            else:
+                swarm.register(conns[who])
+                live.add(who)
+            decisions.append(("live", who, who in live))
+        if swarm.done():
+            break
+    last = [swarm.claim(c, only={0, 1, num - 1, num}) for c in conns]
+    decisions.append(("last", ["WAIT" if index is swarm.WAIT else index for index in last]))
+    return decisions
+
+
+@pytest.mark.parametrize("conns_n", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("num", [24, 257, 1000])
+def test_swarm_state_edge_conns_match_reference(num, conns_n):
+    seed = num * 10 + conns_n
+    port = _edge_script(PORT, num, conns_n, seed)
+    ref = _edge_script(REF, num, conns_n, seed)
+    assert port == ref
+    assert any(d[0] == "claim" and d[2] and d[3] is not None for d in port), "no only= claim"
+    assert any(d[0] == "claim" and d[4] for d in port), "endgame never reached"
+    assert any(d[0] == "release" and d[3] for d in port), "no stranger release"
+
+
+@pytest.mark.parametrize("num", [1, 24, 257, 1000])
+@pytest.mark.parametrize("kind", CONN_KINDS + ("have_then_have_all", "have_past_end"))
+def test_held_mask_matches_has_piece(kind, num):
+    """The claim pool's per-conn mask is, index by index, the rule
+    ``not conn.bitfield or conn.has_piece(i)`` under both packages'
+    ``PeerConnection.has_piece`` (a flagless stub: its own)."""
+    rng = random.Random(num)
+    base = "partial" if kind == "have_past_end" else kind
+    conn = _edge_conn(PORT, "have_all" if kind == "have_then_have_all" else base, num, rng)
+    if kind == "have_then_have_all":  # HAVE_ALL, then a HAVE grows a bitfield
+        peerwire.PeerConnection._mark_have(conn, num // 2)
+    if kind == "have_past_end":  # a HAVE past P grows the bitfield beyond P/8
+        peerwire.PeerConnection._mark_have(conn, num + 20)
+    valid = swarmstate._packed(b"\x01" * num, num)
+    bits = swarmstate._held_bits(conn, valid)
+    assert bits.shape == ((num + 63) // 64,)
+    mask = np.unpackbits(bits.view(np.uint8)).astype(bool)
+    assert not mask[num:].any()
+    mask = mask[:num]
+    rules = [type(conn).has_piece] if kind == "no_flag" else [
+        peerwire.PeerConnection.has_piece, ref_peerwire.PeerConnection.has_piece]
+    for has_piece in rules:
+        assert mask.tolist() == [not conn.bitfield or has_piece(conn, i) for i in range(num)]
+
+
+def test_steady_state_claim_keeps_the_gil():
+    """A claim whose have list and bitfields did not change runs every
+    array op on P/64 words, none of which drops the GIL: a spinning
+    thread, given the GIL only when the claiming thread lets it go,
+    makes no step during 100 such claims (numpy drops the GIL over more
+    than 500 elements; ``argmax`` and ``searchsorted`` at any size)."""
+    num = 4096
+    store = types.SimpleNamespace(num_pieces=num, have=[i % 2 == 0 for i in range(num)])
+    swarm = swarmstate._SwarmState(store, lambda p: None, 1.0)
+    conn = _StubConn(num, range(num))
+    swarm.register(conn)
+    swarm.claim(conn)  # packs the have list and the levels once
+    steps, stop = [0], threading.Event()
+
+    def spin() -> None:
+        while not stop.is_set():
+            steps[0] += 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1.0)  # the spinner must wait this long to force a switch
+    spinner = threading.Thread(target=spin, daemon=True)
+    try:
+        spinner.start()
+        before = steps[0]
+        claimed = [swarm.claim(conn) for _ in range(100)]
+        during = steps[0] - before
+    finally:
+        stop.set()
+        sys.setswitchinterval(interval)
+        spinner.join(timeout=JOIN_S)
+    assert not spinner.is_alive()
+    assert len(set(claimed)) == 100 and all(i % 2 for i in claimed)
+    assert during == 0, f"the spinner ran {during} steps inside 100 claims"
 
 
 # -- swarms across packages ------------------------------------------------
